@@ -1,0 +1,52 @@
+"""Carrying state from the JAX package to the port.
+
+The main route needs no conversion: a storage directory written by
+`qdrant_tpu` (collection.json, WAL, segment.json, numpy `.npy` vector files,
+msgpack payloads) opens unchanged in `qdrant_tpu_torch.api.toc.TableOfContent`,
+whose stores read and write the same files.
+
+`scan_index_from_jax` moves a built JAX `ScanIndex` block onto the device
+without re-deriving it from the f32 rows.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from .device import default_device
+from .ops.fused_scan import DEFAULT_BLK
+from .ops.scan import ScanIndex
+
+
+def scan_index_from_jax(
+    arrays: Dict[str, np.ndarray],
+    *,
+    n: Optional[int] = None,
+    euclid: Optional[bool] = None,
+    block: int = DEFAULT_BLK,
+    device: Optional[torch.device] = None,
+) -> ScanIndex:
+    """Rebuild a port ScanIndex, bit for bit, from the arrays of a
+    single-device JAX ScanIndex in its TPU layout, as numpy: `_v` (bf16,
+    pre-scaled by 2 for euclid), `_vsq_host` (f32 ||v||^2) and `_mask` (the
+    f32 bias table) — the port's own layout.
+
+    `np.asarray` of a jax bf16 array has the ml_dtypes bfloat16 type, which
+    torch.from_numpy refuses, so the block crosses as raw 16-bit patterns.
+    `n` is the number of real rows (default: every row, padding included;
+    pass it so later mask updates keep pad rows invalid); `euclid` defaults
+    to whether the ||v||^2 table is non-zero.
+    """
+    device = device or default_device()
+    bits = np.asarray(arrays["_v"]).view(np.int16)
+    v = torch.tensor(bits, device=device).view(torch.bfloat16)  # copies
+    vsq = np.asarray(arrays["_vsq_host"], dtype=np.float32)
+    bias = torch.tensor(np.asarray(arrays["_mask"], dtype=np.float32), device=device)
+    if euclid is None:
+        euclid = bool(np.any(vsq != 0))
+    return ScanIndex.from_arrays(
+        v, vsq, bias, n=v.shape[0] if n is None else n, euclid=euclid, block=block
+    )

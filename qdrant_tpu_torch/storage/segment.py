@@ -1,0 +1,722 @@
+"""Segment: the per-shard storage + index unit, dense branch (counterpart of
+qdrant_tpu/storage/segment.py).
+
+Id tracker + named dense vector stores + payload storage / index, with
+versioned idempotent ops keyed by op_num. Every dense search answers
+exactly through PlainIndex (the fused scan kernel at 65,536 rows or more).
+Sealing a segment (`build_indexes`) builds no graph in this port.
+
+Not ported yet, and refused rather than served differently: sparse vectors,
+multivectors and quantization raise NotImplementedError when a segment with
+such a config is created, and a search that the JAX engine would send to an
+HNSW graph (`params.hnsw_ef` on a sealed segment) raises too. The on-disk
+format is the JAX package's; loading a JAX-written segment keeps its graph
+and quantization files on disk and listed in segment.json untouched.
+"""
+
+from __future__ import annotations
+
+import functools
+import json
+import os
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+
+from qdrant_tpu.index.payload_index import StructPayloadIndex
+from qdrant_tpu.storage.id_tracker import IdTracker
+from qdrant_tpu.storage.payload import PayloadStorage
+from qdrant_tpu.types import (
+    CollectionParams,
+    Filter,
+    HnswConfig,
+    PayloadIndexParams,
+    PointId,
+    VectorParams,
+)
+from qdrant_tpu.utils import hw_counter
+from qdrant_tpu.utils.budget import BUDGET
+
+from ..index.plain import PlainIndex, fetch_to_host, finalize_device_result
+from .vectors import DenseVectorStore
+
+
+def _with_search_budget(fn):
+    """Register the call as an in-flight search so optimizer builds yield
+    the device between batches (qdrant_tpu/utils/budget.py)."""
+
+    @functools.wraps(fn)
+    def wrapper(*a, **kw):
+        with BUDGET.search():
+            return fn(*a, **kw)
+
+    return wrapper
+
+
+DEFAULT_FULL_SCAN_THRESHOLD = 10_000
+
+# Row count above which the JAX engine sends an unfiltered search to the
+# HNSW graph (qdrant_tpu/storage/segment.py GRAPH_CROSSOVER_ROWS). The port
+# has no graph yet, so a search past it raises.
+GRAPH_CROSSOVER_ROWS = int(
+    os.environ.get("QDRANT_TPU_GRAPH_CROSSOVER_ROWS", 258_000_000)
+)
+
+LOW_MEMORY_MODES = ("disabled", "no_resident", "no_populate")
+_LOW_MEMORY_MODE = "disabled"
+
+
+def set_low_memory_mode(mode: str) -> None:
+    global _LOW_MEMORY_MODE
+    mode = (mode or "disabled").lower()
+    if mode not in LOW_MEMORY_MODES:
+        raise ValueError(
+            f"unknown low_memory_mode {mode!r}; expected one of {LOW_MEMORY_MODES}"
+        )
+    _LOW_MEMORY_MODE = mode
+
+
+# On-disk segment format version, shared with the JAX package.
+SEGMENT_FORMAT_VERSION = 2
+
+
+class SegmentFormatError(Exception):
+    pass
+
+
+def _migrate_segment_meta(meta: dict, path: str) -> dict:
+    fv = int(meta.get("format_version", 1))
+    if fv > SEGMENT_FORMAT_VERSION:
+        raise SegmentFormatError(
+            f"segment at {path} has format v{fv}, newer than this build's "
+            f"v{SEGMENT_FORMAT_VERSION} — upgrade qdrant-tpu to read it"
+        )
+    if fv < 2:
+        meta["format_version"] = 2
+    return meta
+
+
+_NOT_PORTED = "not ported to qdrant_tpu_torch yet (ROADMAP.md queue 1, item {})"
+
+
+def refuse_unported(params: CollectionParams) -> None:
+    """Raise NotImplementedError for a config the port cannot serve yet."""
+    if params.sparse_vectors:
+        raise NotImplementedError("sparse vectors are " + _NOT_PORTED.format("2: sparse"))
+    for name, vp in params.vectors.items():
+        _refuse_vector(name, vp)
+
+
+def _refuse_vector(name: str, vp: VectorParams) -> None:
+    if vp.quantization_config is not None:
+        raise NotImplementedError(
+            f"quantization of vector {name!r} is " + _NOT_PORTED.format("1: quantized")
+        )
+    if vp.multivector_config is not None:
+        raise NotImplementedError(
+            f"multivector {name!r} is " + _NOT_PORTED.format("3: graph and multivector")
+        )
+
+
+class SearchParams:
+    def __init__(
+        self,
+        hnsw_ef: Optional[int] = None,
+        exact: bool = False,
+        quantization_ignore: bool = False,
+        quantization_rescore: bool = True,
+        quantization_oversampling: Optional[float] = None,
+        acorn_enable: Optional[bool] = None,
+        acorn_max_selectivity: float = 0.4,
+    ):
+        self.hnsw_ef = hnsw_ef
+        self.exact = exact
+        self.quantization_ignore = quantization_ignore
+        self.quantization_rescore = quantization_rescore
+        self.quantization_oversampling = quantization_oversampling
+        self.acorn_enable = acorn_enable
+        self.acorn_max_selectivity = acorn_max_selectivity
+
+    @staticmethod
+    def from_dict(d: Optional[dict]) -> "SearchParams":
+        d = d or {}
+        q = d.get("quantization") or {}
+        a = d.get("acorn") or {}
+        return SearchParams(
+            hnsw_ef=d.get("hnsw_ef"),
+            exact=bool(d.get("exact", False)),
+            quantization_ignore=bool(q.get("ignore", False)),
+            quantization_rescore=bool(q.get("rescore", True)),
+            quantization_oversampling=q.get("oversampling"),
+            acorn_enable=a.get("enable"),
+            acorn_max_selectivity=float(a.get("max_selectivity", 0.4)),
+        )
+
+
+class Segment:
+    def __init__(self, params: CollectionParams, appendable: bool = True):
+        refuse_unported(params)
+        self.params = params
+        self.appendable = appendable
+        self.version = 0  # max applied op_num
+        self.id_tracker = IdTracker()
+        self.payload_storage = PayloadStorage()
+        # deferred write-visibility: offsets written but invisible to reads
+        # until confirmed
+        self.deferred: set = set()
+        self.dense: Dict[str, DenseVectorStore] = {}
+        # index kinds not ported yet stay empty; the shell above reads them
+        self.multi: Dict[str, Any] = {}
+        self.sparse: Dict[str, Any] = {}
+        self.hnsw: Dict[str, Any] = {}
+        self.hnsw_multi: Dict[str, Any] = {}
+        self.hnsw_blocks: Dict[str, Any] = {}
+        self.quantized: Dict[str, Any] = {}
+        # segment.json entries for indexes written by the JAX package, kept
+        # as they were so that package still finds its files
+        self._foreign_meta: Dict[str, Any] = {}
+        for name, vp in params.vectors.items():
+            self.dense[name] = DenseVectorStore(
+                vp.size, vp.distance, vp.datatype, on_disk=vp.on_disk
+            )
+        self.payload_index = StructPayloadIndex(
+            self.payload_storage, self.id_tracker, self._has_vector
+        )
+
+    # ------------------------------------------------------------------
+    # live vector-name management
+    # ------------------------------------------------------------------
+
+    def add_vector_name(self, name: str, vp: VectorParams) -> None:
+        """Add a named dense vector to a live segment: existing points get
+        deleted placeholder rows (the lockstep-offset scheme)."""
+        if name in self.dense:
+            return  # idempotent: WAL replay re-applies the op after load
+        _refuse_vector(name, vp)
+        self.params.vectors[name] = vp
+        n = self.total_offsets
+        store = DenseVectorStore(vp.size, vp.distance, vp.datatype, on_disk=vp.on_disk)
+        if n:
+            offs = store.add(np.zeros((n, vp.size), dtype=np.float32))
+            for off in offs:
+                store.delete(int(off))
+        self.dense[name] = store
+
+    def drop_vector_name(self, name: str) -> None:
+        if name not in self.dense:
+            return  # idempotent under WAL replay
+        self.params.vectors.pop(name, None)
+        self.dense.pop(name, None)
+
+    # ------------------------------------------------------------------
+    # introspection
+    # ------------------------------------------------------------------
+
+    def __len__(self) -> int:
+        return len(self.id_tracker)
+
+    def memory_usage_bytes(self) -> Dict[str, Any]:
+        from qdrant_tpu.utils.memsize import merge, sizeof, total
+
+        parts = {
+            "dense": merge(*(sizeof(s) for s in self.dense.values())),
+            "payload_index": sizeof(self.payload_index),
+            "payload_storage": sizeof(self.payload_storage),
+        }
+        out: Dict[str, Any] = merge(*parts.values())
+        out["total_bytes"] = total(out)
+        out["breakdown"] = {k: v for k, v in parts.items() if total(v) > 0}
+        return out
+
+    @property
+    def total_offsets(self) -> int:
+        """Upper bound on internal offsets (including deleted slots)."""
+        return max((len(s) for s in self.dense.values()), default=0)
+
+    def _has_vector(self, name: str, offset: int) -> bool:
+        store = self.dense.get(name)
+        return store is not None and offset < len(store) and not store.is_deleted(offset)
+
+    def available_point_count(self) -> int:
+        return len(self.id_tracker)
+
+    # ------------------------------------------------------------------
+    # write ops (idempotent by op_num)
+    # ------------------------------------------------------------------
+
+    def point_version(self, external_id: PointId) -> Optional[int]:
+        internal = self.id_tracker.internal_id(external_id)
+        if internal is None:
+            return None
+        return self.id_tracker.version(internal)
+
+    def _stale(self, external_id: PointId, op_num: int) -> bool:
+        internal = self.id_tracker.internal_id(external_id)
+        if internal is None:
+            return False
+        return self.id_tracker.version(internal) > op_num
+
+    def upsert_point(
+        self,
+        op_num: int,
+        external_id: PointId,
+        vectors: Dict[str, Any],
+        payload: Optional[Dict[str, Any]] = None,
+        deferred: bool = False,
+    ) -> bool:
+        if self._stale(external_id, op_num):
+            return False
+        internal = self.id_tracker.internal_id(external_id)
+        new_offset = self._next_offset() if internal is None else internal
+        for name, store in self.dense.items():
+            vec = vectors.get(name)
+            if vec is not None:
+                arr = np.asarray(vec, dtype=np.float32)
+                if internal is None:
+                    off = store.add(arr[None, :])[0]
+                    assert off == new_offset, (off, new_offset)
+                else:
+                    store.set(internal, arr)
+            elif internal is None:
+                # keep offsets aligned across stores: a deleted placeholder
+                off = store.add(np.zeros((1, store.dim), dtype=np.float32))[0]
+                store.delete(off)
+        self.id_tracker.link(external_id, new_offset, op_num)
+        if deferred:
+            self.deferred.add(new_offset)
+        else:
+            self.deferred.discard(new_offset)
+        if payload is not None:
+            self.payload_storage.overwrite(new_offset, payload)
+            self.payload_index.update_point(new_offset, payload)
+        elif internal is None:
+            self.payload_storage.overwrite(new_offset, None)
+        self.version = max(self.version, op_num)
+        return True
+
+    def bulk_ingest(
+        self,
+        op_num: int,
+        ids: List[PointId],
+        dense: Dict[str, np.ndarray],  # name → [N, D] f32
+        payloads: Optional[List[Optional[dict]]] = None,
+    ) -> int:
+        """Array-native bulk load of FRESH points into an appendable segment:
+        one numpy append per dense store + one bulk id-tracker link."""
+        if not self.appendable:
+            raise ValueError("bulk_ingest requires an appendable segment")
+        n = len(ids)
+        if n == 0:
+            return 0
+        start = self._next_offset()
+        for name, store in self.dense.items():
+            vecs = dense.get(name)
+            if vecs is not None:
+                if len(vecs) != n:
+                    raise ValueError(f"bulk_ingest: {len(vecs)} vectors for {n} ids")
+                offs = store.add(np.asarray(vecs, dtype=np.float32))
+                assert offs[0] == start, (offs[0], start)
+            else:
+                offs = store.add(np.zeros((n, store.dim), dtype=np.float32))
+                for off in offs:
+                    store.delete(int(off))
+        self.id_tracker.bulk_link_fresh(list(ids), start, op_num)
+        if payloads is not None:
+            for i, payload in enumerate(payloads):
+                if payload:
+                    self.payload_storage.overwrite(start + i, payload)
+                    self.payload_index.update_point(start + i, payload)
+        self.version = max(self.version, op_num)
+        return n
+
+    def _next_offset(self) -> int:
+        return self.total_offsets
+
+    def delete_point(self, op_num: int, external_id: PointId) -> bool:
+        if self._stale(external_id, op_num):
+            return False
+        internal = self.id_tracker.drop(external_id)
+        if internal is None:
+            return False
+        for store in self.dense.values():
+            store.delete(internal)
+        self.payload_index.remove_point(internal)
+        self.payload_storage.clear(internal)
+        self.version = max(self.version, op_num)
+        return True
+
+    def update_vectors(
+        self, op_num: int, external_id: PointId, vectors: Dict[str, Any]
+    ) -> bool:
+        if self._stale(external_id, op_num):
+            return False
+        internal = self.id_tracker.internal_id(external_id)
+        if internal is None:
+            return False
+        for name, vec in vectors.items():
+            if name in self.dense:
+                self.dense[name].set(internal, np.asarray(vec, dtype=np.float32))
+        self.id_tracker.set_version(internal, op_num)
+        self.version = max(self.version, op_num)
+        return True
+
+    def delete_vectors(
+        self, op_num: int, external_id: PointId, names: List[str]
+    ) -> bool:
+        if self._stale(external_id, op_num):
+            return False
+        internal = self.id_tracker.internal_id(external_id)
+        if internal is None:
+            return False
+        for name in names:
+            if name in self.dense:
+                self.dense[name].delete(internal)
+        self.id_tracker.set_version(internal, op_num)
+        self.version = max(self.version, op_num)
+        return True
+
+    def set_payload(
+        self,
+        op_num: int,
+        external_id: PointId,
+        payload: Dict[str, Any],
+        key: Optional[str] = None,
+    ) -> bool:
+        if self._stale(external_id, op_num):
+            return False
+        internal = self.id_tracker.internal_id(external_id)
+        if internal is None:
+            return False
+        if key:
+            self.payload_storage.set_by_key(internal, payload, key)
+        else:
+            self.payload_storage.set(internal, payload)
+        self.payload_index.update_point(internal, self.payload_storage.get(internal))
+        self.id_tracker.set_version(internal, op_num)
+        self.version = max(self.version, op_num)
+        return True
+
+    def overwrite_payload(
+        self, op_num: int, external_id: PointId, payload: Optional[Dict[str, Any]]
+    ) -> bool:
+        if self._stale(external_id, op_num):
+            return False
+        internal = self.id_tracker.internal_id(external_id)
+        if internal is None:
+            return False
+        self.payload_storage.overwrite(internal, payload)
+        self.payload_index.update_point(internal, self.payload_storage.get(internal))
+        self.id_tracker.set_version(internal, op_num)
+        self.version = max(self.version, op_num)
+        return True
+
+    def delete_payload_key(self, op_num: int, external_id: PointId, key: str) -> bool:
+        if self._stale(external_id, op_num):
+            return False
+        internal = self.id_tracker.internal_id(external_id)
+        if internal is None:
+            return False
+        self.payload_storage.delete_key(internal, key)
+        self.payload_index.update_point(internal, self.payload_storage.get(internal))
+        self.id_tracker.set_version(internal, op_num)
+        self.version = max(self.version, op_num)
+        return True
+
+    def clear_payload(self, op_num: int, external_id: PointId) -> bool:
+        if self._stale(external_id, op_num):
+            return False
+        internal = self.id_tracker.internal_id(external_id)
+        if internal is None:
+            return False
+        self.payload_storage.clear(internal)
+        self.payload_index.remove_point(internal)
+        self.id_tracker.set_version(internal, op_num)
+        self.version = max(self.version, op_num)
+        return True
+
+    def create_field_index(self, field: str, params: PayloadIndexParams) -> None:
+        self.payload_index.set_indexed(field, params)
+
+    def delete_field_index(self, field: str) -> None:
+        self.payload_index.drop_index(field)
+
+    # ------------------------------------------------------------------
+    # reads
+    # ------------------------------------------------------------------
+
+    def get_payload(self, external_id: PointId) -> Optional[Dict[str, Any]]:
+        internal = self.id_tracker.internal_id(external_id)
+        if internal is None:
+            return None
+        return self.payload_storage.get(internal)
+
+    def get_vectors(self, external_id: PointId) -> Optional[Dict[str, Any]]:
+        internal = self.id_tracker.internal_id(external_id)
+        if internal is None:
+            return None
+        return {
+            name: store.get(internal).tolist()
+            for name, store in self.dense.items()
+            if internal < len(store) and not store.is_deleted(internal)
+        }
+
+    def filter_mask(self, flt: Optional[Filter]) -> Optional[np.ndarray]:
+        return self.payload_index.filter_mask(flt, self.total_offsets)
+
+    def facet_counts(
+        self, key: str, flt: Optional[Filter] = None
+    ) -> Optional[Dict[Any, int]]:
+        """Index-backed facet counts; None when the field has no map index."""
+        fi = self.payload_index.field_indexes.get(key)
+        if fi is None or fi.map_index is None:
+            return None
+        mask = self.filter_mask(flt)
+        alive = self.alive_mask()
+        if mask is None:
+            mask = alive
+        else:
+            mask = mask[: len(alive)] & alive[: len(mask)]
+        counts: Dict[Any, int] = {}
+        for value, offs in fi.map_index.postings.items():
+            arr = np.fromiter(offs, dtype=np.int64, count=len(offs))
+            arr = arr[arr < len(mask)]
+            c = int(mask[arr].sum())
+            if c:
+                counts[value] = c
+        return counts
+
+    def alive_mask(self) -> np.ndarray:
+        """Mask of offsets currently linked to an external id and visible
+        (deferred heads excluded until confirmed)."""
+        n = self.total_offsets
+        mask = np.zeros(n, dtype=bool)
+        ids = self.id_tracker.internal_ids_array()
+        if len(ids):
+            mask[ids[ids < n]] = True
+        for off in self.deferred:
+            if off < n:
+                mask[off] = False
+        return mask
+
+    def confirm_deferred(self, op_num: int, external_id: PointId) -> bool:
+        internal = self.id_tracker.internal_id(external_id)
+        if internal is None or internal not in self.deferred:
+            return False
+        self.deferred.discard(internal)
+        self.id_tracker.set_version(internal, op_num)
+        self.version = max(self.version, op_num)
+        return True
+
+    # ------------------------------------------------------------------
+    # search
+    # ------------------------------------------------------------------
+
+    @_with_search_budget
+    def search_dense(
+        self,
+        name: str,
+        queries: np.ndarray,  # [B, D] raw
+        k: int,
+        flt: Optional[Filter] = None,
+        params: Optional[SearchParams] = None,
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        """→ (scores [B, k] internal convention, offsets [B, k])."""
+        return self.finish_dispatch(
+            self._search_dense_dispatch(name, queries, k, flt, params)
+        )
+
+    @_with_search_budget
+    def search_dense_dispatch(
+        self,
+        name: str,
+        queries: np.ndarray,
+        k: int,
+        flt: Optional[Filter] = None,
+        params: Optional[SearchParams] = None,
+    ):
+        """Async dispatch: launches the device work and returns an opaque
+        handle WITHOUT waiting for the result. Callers keep several batches
+        in flight and bring them back with ONE device→host copy via
+        `sync_dispatches`."""
+        return self._search_dense_dispatch(name, queries, k, flt, params)
+
+    @staticmethod
+    def finish_dispatch(handle, fetched=None) -> Tuple[np.ndarray, np.ndarray]:
+        """Resolve a search_dense_dispatch handle to host (scores, ids)."""
+        if handle[0] == "host":
+            return handle[1]
+        _, (s_dev, i_dev, b, k_eff), k = handle
+        s_host, i_host = fetched if fetched is not None else fetch_to_host(
+            [(s_dev, i_dev)]
+        )[0]
+        return finalize_device_result(s_host, i_host, b, k_eff, k)
+
+    @staticmethod
+    def sync_dispatches(handles) -> list:
+        """Fetch every device-resident handle with ONE device→host copy and
+        finish all handles in order → [(scores, ids)]."""
+        dev_pos = [i for i, h in enumerate(handles) if h[0] == "dev"]
+        fetched = fetch_to_host(
+            [(handles[i][1][0], handles[i][1][1]) for i in dev_pos]
+        )
+        by_pos = dict(zip(dev_pos, fetched))
+        return [
+            Segment.finish_dispatch(h, by_pos.get(i))
+            for i, h in enumerate(handles)
+        ]
+
+    def _search_dense_dispatch(
+        self,
+        name: str,
+        queries: np.ndarray,
+        k: int,
+        flt: Optional[Filter] = None,
+        params: Optional[SearchParams] = None,
+    ):
+        params = params or SearchParams()
+        store = self.dense.get(name)
+        if store is None:
+            raise ValueError(f"vector {name!r} does not exist in this collection")
+        queries = np.atleast_2d(np.asarray(queries, dtype=np.float32))
+        if queries.shape[1] != store.dim:
+            raise ValueError(
+                f"Wrong input: vector dimension {queries.shape[1]} does not "
+                f"match the collection dimensionality {store.dim}"
+            )
+        n = self.total_offsets
+        if n == 0:
+            b = len(queries)
+            return (
+                "host",
+                (
+                    np.full((b, k), -np.inf, dtype=np.float32),
+                    np.full((b, k), -1, dtype=np.int32),
+                ),
+            )
+        fmask = self.filter_mask(flt)
+        alive = self.alive_mask()
+        combined = alive if fmask is None else (alive & fmask)
+        hw_counter.add(
+            vectors_scored=int(combined.sum()),
+            dims=store.dim,
+            filter_evals=1 if fmask is not None else 0,
+        )
+        if not params.exact and self._would_use_graph(
+            name, combined, fmask is not None, params.hnsw_ef is not None
+        ):
+            raise NotImplementedError(
+                "HNSW graph search is " + _NOT_PORTED.format("3: graph and multivector")
+                + "; pass params.exact=true for the exact scan"
+            )
+        return ("dev", PlainIndex(store).search_device(queries, k, combined), k)
+
+    def _would_use_graph(
+        self, name: str, combined_mask: np.ndarray, filtered: bool,
+        explicit_ef: bool,
+    ) -> bool:
+        """True where the JAX engine would search this segment's HNSW graph:
+        the segment is sealed with live rows (the JAX seal builds a graph
+        there) and its cost model (segment.py `_should_use_graph`) picks the
+        graph — an explicit `hnsw_ef`, or more rows than the crossover."""
+        store = self.dense[name]
+        if self.appendable or store.available_count == 0 or store.on_disk:
+            return False
+        vp = self.params.vectors[name]
+        threshold = (
+            vp.hnsw_config.full_scan_threshold
+            if vp.hnsw_config
+            else DEFAULT_FULL_SCAN_THRESHOLD
+        )
+        if filtered and int(combined_mask.sum()) < threshold:
+            return False
+        return explicit_ef or len(combined_mask) >= GRAPH_CROSSOVER_ROWS
+
+    # ------------------------------------------------------------------
+    # seal
+    # ------------------------------------------------------------------
+
+    def build_indexes(self, default_hnsw: Optional[HnswConfig] = None) -> None:
+        """Seal the segment. No graph is built: the exact scan serves every
+        search this port accepts. The scan block is uploaded now, so the
+        first search after sealing pays no upload."""
+        from ..index.plain import SCAN_THRESHOLD
+
+        for store in self.dense.values():
+            if len(store) >= SCAN_THRESHOLD:  # PlainIndex's own gate
+                store.scan_index()
+        self.appendable = False
+
+    # ------------------------------------------------------------------
+    # persistence (the JAX package's format)
+    # ------------------------------------------------------------------
+
+    def save(self, path: str) -> None:
+        os.makedirs(path, exist_ok=True)
+        meta = {
+            "format_version": SEGMENT_FORMAT_VERSION,
+            "version": self.version,
+            "appendable": self.appendable,
+            "params": self.params.to_dict(),
+            "payload_indexes": {
+                k: v.to_dict() for k, v in self.payload_index.indexed_fields().items()
+            },
+            "deferred": sorted(self.deferred),
+            "hnsw": [],
+            "hnsw_multi": [],
+            "hnsw_blocks": {},
+            "quantized": {},
+            "payload_backend": (
+                "memory"
+                if isinstance(self.payload_storage, PayloadStorage)
+                else "gridstore"
+            ),
+            **self._foreign_meta,
+        }
+        with open(os.path.join(path, "segment.json"), "w") as f:
+            json.dump(meta, f)
+        self.id_tracker.save(path)
+        self.payload_storage.save(path)
+        for name, store in self.dense.items():
+            store.save(os.path.join(path, f"dense_{_safe(name)}"))
+
+    @classmethod
+    def load(cls, path: str) -> "Segment":
+        with open(os.path.join(path, "segment.json")) as f:
+            meta = json.load(f)
+        meta = _migrate_segment_meta(meta, path)
+        params = CollectionParams.from_dict(meta["params"])
+        seg = cls(params, appendable=meta["appendable"])
+        seg.version = meta["version"]
+        seg.deferred = set(meta.get("deferred", []))
+        seg.id_tracker = IdTracker.load(path)
+        if meta.get("payload_backend") == "gridstore":
+            from qdrant_tpu.storage.payload import GridPayloadStorage
+
+            seg.payload_storage = GridPayloadStorage.load(path)
+        else:
+            seg.payload_storage = PayloadStorage.load(path)
+        for name, vp in params.vectors.items():
+            sub = os.path.join(path, f"dense_{_safe(name)}")
+            if os.path.exists(sub):
+                seg.dense[name] = DenseVectorStore.load(
+                    sub, vp.size, vp.distance, vp.datatype,
+                    on_disk=vp.on_disk or _LOW_MEMORY_MODE != "disabled",
+                )
+        seg.payload_index = StructPayloadIndex(
+            seg.payload_storage, seg.id_tracker, seg._has_vector
+        )
+        for field, pdict in meta.get("payload_indexes", {}).items():
+            seg.payload_index.set_indexed(field, PayloadIndexParams.from_dict(pdict))
+        seg._foreign_meta = {
+            key: meta[key]
+            for key in ("hnsw", "hnsw_multi", "hnsw_blocks", "quantized")
+            if meta.get(key)
+        }
+        if _LOW_MEMORY_MODE == "no_populate":
+            for store in seg.dense.values():
+                store.drop_device()
+        return seg
+
+
+def _safe(name: str) -> str:
+    return name if name else "_default"

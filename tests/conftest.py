@@ -13,3 +13,11 @@ os.environ["JAX_PLATFORMS"] = "cpu"
 import jax  # noqa: E402
 
 jax.config.update("jax_platforms", "cpu")
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU; skips without one "
+        "(on the card: python -m pytest tests/test_torch_cuda.py -m cuda)",
+    )

@@ -1,0 +1,80 @@
+"""The hand-written fused scan kernel on the card against its plain PyTorch
+version (the CPU has no CUDA kernel to run: these tests skip there).
+
+Run on a GPU machine:  python -m pytest tests/test_torch_cuda.py -m cuda -q
+
+Tolerance: survivor scores within D * 2^-23 * max|q| * max|v| (+2 ulp of
+the largest score) — a worst-case bound for summing D bf16 products in f32
+in another order; ids equal wherever the winner beats the runner-up by more.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from qdrant_tpu_torch.ops import fused_scan as fs
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the fused scan kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _inputs(dev, b, n_pad, d, euclid, seed=0):
+    rng = np.random.default_rng(seed)
+    v = rng.standard_normal((n_pad, d)).astype(np.float32)
+    q = rng.standard_normal((b, d)).astype(np.float32)
+    dead = rng.random(n_pad) < 0.1
+    vsq = (v * v).sum(1) if euclid else np.zeros(n_pad, np.float32)
+    bias = np.where(dead, fs.NEG_INF, -vsq).astype(np.float32)
+    vk = torch.from_numpy(2 * v if euclid else v).to(dev).to(torch.bfloat16)
+    return (torch.from_numpy(q).to(dev).to(torch.bfloat16), vk,
+            torch.from_numpy(bias).to(dev))
+
+
+@pytest.mark.parametrize(
+    "b,n_pad,d,blk,slots,euclid",
+    [
+        (8, 4096, 128, 128, 4, False),
+        (5, 8192, 128, 256, 4, True),  # B not a multiple of the 32-row tile
+        (37, 65536, 64, 4096, 16, True),
+        (256, 131072, 1536, 4096, 16, False),
+        (64, 4096 * 3, 128, 4096, 16, True),  # more slots than blocks
+    ],
+)
+def test_kernel_matches_plain(cuda, b, n_pad, d, blk, slots, euclid):
+    q, v, bias = _inputs(cuda, b, n_pad, d, euclid)
+    before = fs.fused_scan_survivors.launches
+    ks, ki = fs.fused_scan_survivors(q, v, bias, blk, slots)
+    ps, pi = fs.fused_scan_survivors_plain(q, v, bias, blk, slots)
+    torch.cuda.synchronize()
+    assert fs.fused_scan_survivors.launches == before + 1
+    qn, vn = float(q.float().norm(dim=1).max()), float(v.float().norm(dim=1).max())
+    smax = float(bias[bias > fs.NEG_INF / 2].abs().max()) + qn * vn
+    tol = d * 2.0 ** -23 * qn * vn + 2 * float(np.spacing(np.float32(smax)))
+    empty = ps <= fs.NEG_INF / 2
+    assert torch.equal(ks <= fs.NEG_INF / 2, empty)
+    assert torch.equal(ki[empty], pi[empty])
+    assert float((ks - ps).abs()[~empty].max()) <= tol
+    diff = (ki != pi) & ~empty
+    if diff.any():
+        rows = diff.nonzero()[:, 0]
+        alt = (q.float()[rows] * v.float()[ki[diff].long()]).sum(1) + bias[ki[diff].long()]
+        assert float((ps[diff] - alt).abs().max()) <= tol
+
+
+def test_kernel_rejects_misaligned_width(cuda):
+    q, v, bias = _inputs(cuda, 8, 4096, 128, False)
+    with pytest.raises(ValueError):
+        fs.fused_scan_survivors(q[:, :100], v[:, :100].contiguous(), bias, 128, 4)
+
+
+def test_kernel_rejects_mixed_devices(cuda):
+    q, v, bias = _inputs(cuda, 8, 4096, 128, False)
+    with pytest.raises(ValueError):
+        fs.fused_scan_survivors(q.cpu(), v, bias, 128, 4)
