@@ -1,39 +1,61 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch / CUDA port (qdrant_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py [--seed 0] [--phases build,kernel,rest,filtered]
+    python3 chip_smoke.py [--seed 0] [--phases build,kernel,rest,filtered,sq]
 
 Phases, each printing its numbers on its own line:
 
-1. build     compile csrc/fused_scan.cu with nvcc into build/kernels/.
+1. build     compile csrc/fused_scan.cu (both modes) with nvcc into
+             build/kernels/.
 2. kernel    the fused scan kernel against its plain PyTorch version on the
-             same inputs: euclid at 256 queries x 1,000,000 x 128 (10% of
-             rows deleted), dot at 256 x 100,000 x 1536, and the shapes
-             the REST phases launch: 8 x 1,000,000 x 128 euclid and
-             8 x 100,000 x 100 (padded to 128) cosine with 10% of rows
-             live. Survivor scores must agree within a worst-case f32
-             summation-order bound and ids must be equal wherever the class
-             winner beats the runner-up by more than that bound. Times from
-             CUDA events.
+             same inputs, CUDA-event times beside the plain version's and,
+             for reference, the product's alone (`product_ms`: bf16
+             `q @ v.T`, `torch._int_mm`). No single PyTorch call computes the
+             survivors (a product, a lane-group argmax and a slot-ring
+             merge), so the kernel table's `library_ms` is null.
+             bf16 mode: euclid at 256 queries x 1,000,000 x 128 (10% of
+             rows deleted), dot at 256 x 100,000 x 1536, and the shapes the
+             REST phases launch: 8 x 1,000,000 x 128 euclid and 8 x 100,000
+             x 100 (padded to 128) cosine with 10% of rows live. Survivor
+             scores must agree within a worst-case f32 summation-order bound
+             and ids must be equal wherever the class winner beats the
+             runner-up by more than that bound.
+             int8 mode (scalar-quantized codes, made on the card from
+             --seed): 8 and 256 queries x 1,000,000 x 1536 dot on unit-vector
+             codes with 10% of rows deleted (8 is the sq phase's launch), and
+             8 x 1,000,000 x 128 euclid (bias -||v||^2, 2*scale^2). Survivor
+             scores and ids must be equal bit for bit.
 3. rest      the port's REST server over a TableOfContent: 1,000,000 x 128
              euclid points made from --seed, bulk-ingested and sealed by the
              optimizer, 64 searches from 8 threads (coalesced by the
              micro-batcher); recall@10 >= 0.99 against a numpy brute force
-             that shares no code with the port, and the kernel's launch
+             that shares no code with the port, and the bf16 kernel's launch
              count must rise.
 4. filtered  100,000 x 100 cosine points with a keyword payload index
              matching 10% of them and `filter.must match` searches: every
              hit matches and recall@10 >= 0.99 against exact (a correctness
              check; it reports no throughput).
+5. sq        Qdrant's scalar-quantization deployment at its benchmark's
+             shape (dbpedia-openai-1M-1536-angular: 1,000,000 x 1536 cosine,
+             random vectors from --seed; `{"scalar": {"type": "int8",
+             "quantile": 0.99, "always_ram": true}}`): sealed by the
+             optimizer into int8 codes, 64 default (rescored) searches from 8
+             threads with recall@10 >= 0.99 and scores equal to the exact
+             cosine within 1e-4 relative, then 16 codes-only searches
+             (`quantization.rescore: false`) with recall@10 >= 0.95 against
+             a numpy brute force over int8 codes it encodes itself (survivor
+             bin collisions are the only loss allowed; the recall against
+             exact cosine is printed beside it); the int8 kernel's launch
+             count must rise.
 
---profile DIR traces the rest phase's search window a second time with
-torch.profiler (device activity only; device busy and idle share from that
-one window, trace in DIR) and times the host steps under one search.
+--profile DIR traces the rest and sq phases' search windows a second time
+with torch.profiler (device activity only; device busy and idle share from
+each window, traces in DIR) and times the host steps under one rest search.
 
 Before the last line it prints the kernel table as JSON; the last line is
-{"ok": true, "device": {...}}. Any failed check raises (including jax
-having been imported), so the script exits non-zero and prints no result;
-it refuses to run without CUDA.
+{"ok": true, "device": {...}}. Any failed check raises (including jax or
+the qdrant_tpu package having been imported), so the script exits non-zero
+and prints no result; it refuses to run without CUDA.
 """
 
 from __future__ import annotations
@@ -52,7 +74,9 @@ import urllib.request
 import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-ALL_PHASES = ("build", "kernel", "rest", "filtered")
+ALL_PHASES = ("build", "kernel", "rest", "filtered", "sq")
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet)
+PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12}  # dense tensor-core peaks
 
 
 class SmokeError(RuntimeError):
@@ -159,14 +183,102 @@ def compare_kernel(rng, b, n, d, euclid, deleted_frac, d_pad=None, blk=4096,
     plain_ms = _time_ms(
         lambda: fs.fused_scan_survivors_plain(q_bf, v_bf, bias, blk, slots), 5
     )
+    product_ms = _time_ms(lambda: q_bf @ v_bf.T, 20)
     fs.fused_scan_survivors.launches = 0
     flop = 2.0 * b * n_pad * d_pad
     return {
         "shape": f"B={b} N={n} (padded {n_pad}) D={d} (padded {d_pad}) blk={blk} "
         f"slots={slots} {'euclid' if euclid else 'dot'} masked={deleted_frac}",
         "max_abs_err": max_err, "tol": tol, "ids_differing": n_diff,
-        "ms": ms, "plain_ms": plain_ms,
+        "ms": ms, "plain_ms": plain_ms, "product_ms": product_ms,
         "kernel_tflops": flop / ms / 1e9, "plain_tflops": flop / plain_ms / 1e9,
+        **_bound(b, n_pad, d_pad, slots, 2, "bf16"),
+    }
+
+
+def _bound(b, n_pad, d_pad, slots, itemsize, kind):
+    """Least time the card could take for one survivors call: each input
+    read once (queries, the vector block, the bias), each output written once
+    (f32 scores + int32 ids), over the HBM rate; the products over the
+    tensor-core peak for the operand type. → bound_ms, bound_by and both
+    terms."""
+    nbytes = (b + n_pad) * d_pad * itemsize + 4 * n_pad + 8 * b * slots * 128
+    ops = 2.0 * b * n_pad * d_pad
+    mem_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / PEAK_OPS_PER_S[kind] * 1e3
+    return {"bound_ms": max(mem_ms, ops_ms),
+            "bound_by": "bytes" if mem_ms >= ops_ms else "operations",
+            "bytes": nbytes, "ops": ops, "bytes_ms": mem_ms, "ops_ms": ops_ms}
+
+
+def sq_codes_on_card(gen, n, d, unit, scale=None):
+    """Random normal vectors made on the card from `gen` (unit length for
+    cosine), encoded as ScalarQuantized.encode does: a global scale from the
+    0.99 quantile of |x| over a 1M-value sample, codes round(x / scale)
+    clipped to ±127 → (codes [n, d] int8, ||x||^2 [n] f32, scale)."""
+    import torch
+
+    x = torch.randn((n, d), generator=gen, device="cuda")
+    if unit:
+        x /= x.norm(dim=1, keepdim=True)
+    if scale is None:
+        idx = torch.randint(0, x.numel(), (1_000_000,), generator=gen, device="cuda")
+        scale = float(torch.quantile(x.reshape(-1)[idx].abs(), 0.99)) / 127.0
+    codes = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
+    return codes, (x * x).sum(dim=1), scale
+
+
+def compare_kernel_int8(gen, b, n, d, euclid, deleted_frac, blk=4096, slots=16):
+    """int8 kernel vs plain survivors on SQ codes made on the card → dict of
+    numbers. Scores and ids must be equal bit for bit: the integer dot is
+    exact in both and both round the scale and the bias add separately."""
+    import torch
+
+    from qdrant_tpu_torch.ops import fused_scan as fs
+
+    dev = torch.device("cuda")
+    n_pad = fs.pad_rows(n, blk)
+    d_pad = max((d + 127) // 128 * 128, 128)
+    codes, norms, scale = sq_codes_on_card(gen, n, d, unit=not euclid)
+    v = torch.zeros((n_pad, d_pad), dtype=torch.int8, device=dev)
+    v[:n, :d] = codes
+    del codes
+    q = torch.zeros((b, d_pad), dtype=torch.int8, device=dev)
+    q[:, :d] = sq_codes_on_card(gen, b, d, unit=not euclid, scale=scale)[0]
+    live = torch.rand(n, generator=gen, device=dev) >= deleted_frac
+    bias = torch.full((n_pad,), fs.NEG_INF, dtype=torch.float32, device=dev)
+    bias[:n] = torch.where(live, -norms if euclid else torch.zeros_like(norms), fs.NEG_INF)
+    scale_sq = float(np.float32((2.0 if euclid else 1.0) * scale * scale))
+
+    fs.fused_scan_survivors.launches_int8 = 0
+    s_k, i_k = fs.fused_scan_survivors(q, v, bias, blk, slots, scale_sq)
+    s_p, i_p = fs.fused_scan_survivors_plain(q, v, bias, blk, slots, scale_sq)
+    torch.cuda.synchronize()
+    check(fs.fused_scan_survivors.launches_int8 == 1, "int8 kernel launch not counted")
+    n_ids = int((i_k != i_p).sum())
+    both = (s_k > fs.NEG_INF / 2) & (s_p > fs.NEG_INF / 2)
+    max_err = float((s_k - s_p).abs()[both].max()) if bool(both.any()) else 0.0
+    check(n_ids == 0, f"int8 kernel and plain ids differ in {n_ids} survivors")
+    check(bool(torch.equal(s_k, s_p)), f"int8 survivor scores differ (max {max_err})")
+    ms = _time_ms(lambda: fs.fused_scan_survivors(q, v, bias, blk, slots, scale_sq), 20)
+    plain_ms = _time_ms(
+        lambda: fs.fused_scan_survivors_plain(q, v, bias, blk, slots, scale_sq), 5
+    )
+    product_ms, product_note = None, "torch._int_mm(v, q.T)"
+    try:
+        product_ms = _time_ms(lambda: torch._int_mm(v, q.t()), 20)
+    except RuntimeError as exc:  # a yardstick only: record why it is missing
+        product_note = f"torch._int_mm refused this shape: {exc}".splitlines()[0]
+    fs.fused_scan_survivors.launches_int8 = 0
+    ops = 2.0 * b * n_pad * d_pad
+    return {
+        "shape": f"B={b} N={n} (padded {n_pad}) D={d} (padded {d_pad}) blk={blk} "
+        f"slots={slots} {'euclid' if euclid else 'dot'} masked={deleted_frac} int8",
+        "max_abs_err": max_err, "ids_differing": n_ids,
+        "ms": ms, "plain_ms": plain_ms, "product_ms": product_ms,
+        "product_note": product_note,
+        "kernel_tops": ops / ms / 1e9, "plain_tops": ops / plain_ms / 1e9,
+        **_bound(b, n_pad, d_pad, slots, 1, "int8"),
     }
 
 
@@ -234,10 +346,11 @@ def _recall(hits, truth, k):
     return float(np.mean([len(g & set(t[:k].tolist())) / k for g, t in zip(got, truth)]))
 
 
-def _profile_window(fn, out_dir):
+def _profile_window(fn, out_dir, name):
     """Run fn under torch.profiler, tracing device activity only (no host
     op spans, which would stretch the window) → (device-busy ms, wall ms of
-    the same window, top kernels); the chrome trace goes to out_dir."""
+    the same window, top kernels); the chrome trace goes to
+    out_dir/<name>_window_trace.json."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -245,7 +358,7 @@ def _profile_window(fn, out_dir):
         fn()
         wall_ms = (time.perf_counter() - t0) * 1e3
     os.makedirs(out_dir, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(out_dir, "rest_window_trace.json"))
+    prof.export_chrome_trace(os.path.join(out_dir, f"{name}_window_trace.json"))
     rows = [(e.key, e.self_device_time_total / 1e3, e.count)
             for e in prof.key_averages() if e.self_device_time_total > 0]
     rows.sort(key=lambda r: -r[1])
@@ -339,7 +452,7 @@ def run_rest(rng, storage, fs, n=1_000_000, d=128, n_queries=64, threads=8,
         if profile_dir:  # the same window again, traced (not in the QPS above)
             busy, traced_ms, top = _profile_window(
                 lambda: _concurrent_search(base, "sift1m", q, threads, {"limit": 10}),
-                profile_dir)
+                profile_dir, "rest")
             prof = {"traced_wall_ms": traced_ms, "device_busy_ms": busy,
                     "device_idle_share": 1 - busy / traced_ms,
                     "top_device_ops_ms": [[k, t, c] for k, t, c in top],
@@ -399,6 +512,133 @@ def run_filtered(rng, storage, fs, n=100_000, d=100, n_queries=64, threads=8):
         toc.close()
 
 
+def run_sq(rng, storage, fs, n=1_000_000, d=1536, n_queries=64, threads=8,
+           n_codes_only=16, profile_dir=None):
+    """The sq phase: Qdrant's scalar-quantization config on a 1M x 1536
+    cosine collection, served through REST."""
+    import torch
+
+    from qdrant_tpu_torch.api.rest import RestServer
+    from qdrant_tpu_torch.api.toc import TableOfContent
+
+    quant = {"scalar": {"type": "int8", "quantile": 0.99, "always_ram": True}}
+    toc = TableOfContent(storage)
+    srv = RestServer(toc, host="127.0.0.1", port=0)
+    srv.start_background()
+    base = f"http://127.0.0.1:{srv.port}"
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        # The per-vector form of the config: both packages read
+        # quantization_config only inside `vectors` (a collection-level one
+        # is accepted and ignored).
+        _call(base, "PUT", "/collections/dbpedia",
+              {"vectors": {"size": d, "distance": "Cosine", "quantization_config": quant}})
+        x = rng.standard_normal((n, d), dtype=np.float32)
+        coll = toc.get_collection("dbpedia")
+        t0 = time.perf_counter()
+        coll.bulk_ingest(list(range(n)), {"": x})
+        ingest_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        toc.optimize_all()
+        optimize_s = time.perf_counter() - t0
+        sealed = [s for s in coll.shards[0].segments if not s.appendable and len(s) == n]
+        check(bool(sealed) and "" in sealed[0].quantized,
+              f"the optimizer did not seal SQ codes: "
+              f"{[(len(s), s.appendable, list(s.quantized)) for s in coll.shards[0].segments]}")
+        check(sealed[0].dense[""]._scan is None, "the seal uploaded a bf16 scan block")
+        q = rng.standard_normal((n_queries, d), dtype=np.float32)
+        t0 = time.perf_counter()
+        _concurrent_search(base, "dbpedia", q[:1], 1, {"limit": 10})  # warm-up
+        first_search_s = time.perf_counter() - t0
+        fs.fused_scan_survivors.launches_int8 = 0
+        hits, wall = _concurrent_search(base, "dbpedia", q, threads, {"limit": 10})
+        launches = fs.fused_scan_survivors.launches_int8
+        check(launches > 0, "the SQ search never launched the int8 kernel")
+        truth, xn = _exact_cosine(x, q, 10)
+        recall = _recall(hits, truth, 10)
+        check(all(len(h) == 10 for h in hits), "an SQ search returned fewer than 10 hits")
+        worst = 0.0
+        qn = q / np.linalg.norm(q, axis=1, keepdims=True)
+        for qi, h in enumerate(hits):
+            ids = np.array([p["id"] for p in h])
+            ref = xn[ids] @ qn[qi]
+            got = np.array([p["score"] for p in h])
+            check(np.all(np.isfinite(got)), "non-finite score")
+            worst = max(worst, float(np.abs(got - ref).max() / np.abs(ref).max()))
+        check(worst <= 1e-4, f"returned cosines off by {worst} (relative)")
+        check(recall >= 0.99, f"SQ recall@10 {recall} < 0.99")
+        codes_body = {"limit": 10, "params": {"quantization": {"rescore": False}}}
+        fs.fused_scan_survivors.launches_int8 = 0
+        c_hits, c_wall = _concurrent_search(base, "dbpedia", q[:n_codes_only], threads,
+                                            codes_body)
+        c_launches = fs.fused_scan_survivors.launches_int8
+        check(c_launches > 0, "the codes-only search never launched the int8 kernel")
+        check(all(len(h) == 10 and all(0 <= p["id"] < n for p in h) for h in c_hits),
+              "a codes-only search returned an invalid id or fewer than 10 hits")
+        c_truth = _exact_codes_topk(xn, qn[:n_codes_only], 10)
+        c_recall = _recall(c_hits, c_truth, 10)
+        c_recall_exact = _recall(c_hits, truth[:n_codes_only], 10)
+        check(c_recall >= 0.95, f"codes-only recall@10 {c_recall} < 0.95 (vs the codes)")
+        prof = {}
+        if profile_dir:  # the same window again, traced (not in the QPS above)
+            busy, traced_ms, top = _profile_window(
+                lambda: _concurrent_search(base, "dbpedia", q, threads, {"limit": 10}),
+                profile_dir, "sq")
+            prof = {"traced_wall_ms": traced_ms, "device_busy_ms": busy,
+                    "device_idle_share": 1 - busy / traced_ms,
+                    "top_device_ops_ms": [[k, t, c] for k, t, c in top]}
+        return {
+            "points": n, "dim": d, "quantization": quant, "ingest_s": ingest_s,
+            "optimize_s": optimize_s, "first_search_s": first_search_s,
+            "requests": n_queries, "threads": threads, "wall_s": wall,
+            "qps": n_queries / wall, "recall_at_10": recall, "score_rel_err": worst,
+            "int8_kernel_launches": launches,
+            "codes_only": {"requests": n_codes_only, "wall_s": c_wall,
+                           "qps": n_codes_only / c_wall,
+                           "recall_at_10_vs_codes": c_recall,
+                           "recall_at_10_vs_exact": c_recall_exact,
+                           "int8_kernel_launches": c_launches},
+            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(), **prof,
+        }
+    finally:
+        srv.shutdown()
+        toc.close()
+
+
+def _exact_cosine(x, q, k, chunk=131072):
+    """Numpy cosine brute force, independent of the port, in row chunks →
+    (ids [B, k] best first, the unit-normalised rows)."""
+    qn = q / np.linalg.norm(q, axis=1, keepdims=True)
+    xn = np.empty_like(x)
+    scores = np.empty((len(q), len(x)), dtype=np.float32)
+    for i in range(0, len(x), chunk):
+        part = x[i : i + chunk]
+        xn[i : i + chunk] = part / np.linalg.norm(part, axis=1, keepdims=True)
+        scores[:, i : i + chunk] = qn @ xn[i : i + chunk].T
+    top = np.argpartition(-scores, k, axis=1)[:, :k]
+    order = np.argsort(-np.take_along_axis(scores, top, axis=1), axis=1)
+    return np.take_along_axis(top, order, axis=1), xn
+
+
+def _exact_codes_topk(xn, qn, k, chunk=131072):
+    """Numpy brute force over int8 codes encoded here as Qdrant's scalar
+    quantization defines them (scale = 0.99 quantile of |x| over a 1M-value
+    sample / 127; codes = round(x / scale) clipped to ±127), ranked by the
+    exact integer dot → ids [B, k] best first."""
+    flat = xn.reshape(-1)
+    if flat.size > 1_000_000:
+        flat = flat[np.random.default_rng(0).integers(0, flat.size, 1_000_000)]
+    scale = max(float(np.quantile(np.abs(flat), 0.99)), 1e-12) / 127.0
+    qc = np.clip(np.round(qn / scale), -127, 127).astype(np.float64)
+    scores = np.empty((len(qn), len(xn)), dtype=np.float64)
+    for i in range(0, len(xn), chunk):
+        codes = np.clip(np.round(xn[i : i + chunk] / scale), -127, 127)
+        scores[:, i : i + chunk] = qc @ codes.astype(np.float64).T
+    top = np.argpartition(-scores, k, axis=1)[:, :k]
+    order = np.argsort(-np.take_along_axis(scores, top, axis=1), axis=1, kind="stable")
+    return np.take_along_axis(top, order, axis=1)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -431,11 +671,18 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
     rng = np.random.default_rng(args.seed)
-    kernel_row = {
-        "name": "fused_scan_survivors", "route": "cuda",
-        "source": "qdrant_tpu_torch/csrc/fused_scan.cu",
-        "replaces": "qdrant_tpu/ops/pallas_scan.py:53",
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(args.seed)
+    rows = {
+        mode: {
+            "name": f"fused_scan_survivors_{mode}", "route": "cuda",
+            "source": "qdrant_tpu_torch/csrc/fused_scan.cu",
+            "replaces": f"qdrant_tpu/ops/pallas_scan.py:{line}",
+            "library_ms": None,  # no single PyTorch call computes the survivors
+        }
+        for mode, line in (("bf16", 53), ("int8", 74))
     }
+    row_keys = ("ms", "plain_ms", "bound_ms", "bound_by")
 
     if "build" in phases or "kernel" in phases:
         t0 = time.perf_counter()
@@ -460,8 +707,25 @@ def main() -> int:
             print(f"kernel {name}: {json.dumps(res)} ({card})", flush=True)
             max_err = max(max_err, res["max_abs_err"])
             if name == "rest_euclid_1m_128_b8":  # the main path's launch shape
-                kernel_row.update(ms=res["ms"], plain_ms=res["plain_ms"])
-        kernel_row["max_abs_err"] = max_err
+                rows["bf16"].update({k: res[k] for k in row_keys})
+        rows["bf16"]["max_abs_err"] = max_err
+        max_err = 0.0
+        for name, kw in (
+            # the sq phase's launch: a few requests padded to 8 rows
+            ("sq_cosine_1m_1536_b8", dict(b=8, n=1_000_000, d=1536, euclid=False,
+                                          deleted_frac=0.1)),
+            ("sq_cosine_1m_1536_b256", dict(b=256, n=1_000_000, d=1536, euclid=False,
+                                            deleted_frac=0.1)),
+            ("sq_euclid_1m_128_b8", dict(b=8, n=1_000_000, d=128, euclid=True,
+                                         deleted_frac=0.1)),
+        ):
+            res = compare_kernel_int8(gen, **kw)
+            print(f"kernel {name}: {json.dumps(res)} ({card})", flush=True)
+            max_err = max(max_err, res["max_abs_err"])
+            if name == "sq_cosine_1m_1536_b8":
+                rows["int8"].update({k: res[k] for k in row_keys})
+            torch.cuda.empty_cache()
+        rows["int8"]["max_abs_err"] = max_err
     storage_root = os.path.join(ROOT, "build")
     os.makedirs(storage_root, exist_ok=True)
     if "rest" in phases:
@@ -471,7 +735,7 @@ def main() -> int:
         finally:
             shutil.rmtree(storage, ignore_errors=True)
         print(f"rest sift1m: {json.dumps(res)} ({card})", flush=True)
-        kernel_row["launches"] = res["kernel_launches"]
+        rows["bf16"]["launches"] = res["kernel_launches"]
     if "filtered" in phases:
         storage = tempfile.mkdtemp(prefix="smoke_filtered_", dir=storage_root)
         try:
@@ -479,8 +743,18 @@ def main() -> int:
         finally:
             shutil.rmtree(storage, ignore_errors=True)
         print(f"filtered glove100: {json.dumps(res)} ({card})", flush=True)
+    if "sq" in phases:
+        storage = tempfile.mkdtemp(prefix="smoke_sq_", dir=storage_root)
+        try:
+            res = run_sq(rng, storage, fs, profile_dir=args.profile)
+        finally:
+            shutil.rmtree(storage, ignore_errors=True)
+        print(f"sq dbpedia: {json.dumps(res)} ({card})", flush=True)
+        rows["int8"]["launches"] = res["int8_kernel_launches"]
     check("jax" not in sys.modules, "the port imported jax")
-    print(json.dumps({"kernels": [kernel_row]}))
+    reference = sorted(m for m in sys.modules if m.split(".")[0] == "qdrant_tpu")
+    check(not reference, f"the port imported the JAX package: {reference}")
+    print(json.dumps({"kernels": list(rows.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

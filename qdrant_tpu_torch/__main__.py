@@ -45,7 +45,7 @@ def main(argv=None) -> int:
     if args.config_path:
         os.environ["QDRANT_CONFIG_PATH"] = args.config_path
 
-    from qdrant_tpu.settings import Settings
+    from .settings import Settings
 
     settings = Settings.load()
     if args.storage_dir:
@@ -73,7 +73,7 @@ def main(argv=None) -> int:
         except Exception as exc:
             log.error("failed to enable on-disk log sink: %s", exc)
 
-    from qdrant_tpu.utils.flags import init_feature_flags
+    from .utils.flags import init_feature_flags
 
     init_feature_flags(settings.get("feature_flags"))
 
@@ -85,7 +85,7 @@ def main(argv=None) -> int:
         log.warning("low_memory_mode=%s: segments load on-disk/unpopulated", lmm)
 
     if settings.get_path("service.service_debug", False):
-        from qdrant_tpu.utils.debug import WATCHDOG
+        from .utils.debug import WATCHDOG
 
         WATCHDOG.configure({"enabled": True})
         log.info("service debug: stall watchdog enabled")
@@ -105,7 +105,7 @@ def main(argv=None) -> int:
     )
     inf_cfg = settings.get("inference") or {}
     if inf_cfg.get("address"):
-        from qdrant_tpu.utils import inference as _inference
+        from .utils import inference as _inference
 
         _inference.configure(
             inf_cfg["address"],

@@ -24,16 +24,16 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 
 from ..collection.collection import CollectionError, NotFoundError
-from qdrant_tpu.api.auth import AuthError, Authenticator
+from ..api.auth import AuthError, Authenticator
 from ..collection.query import QueryError, QueryExecutor, QueryRequest
 from ..storage.segment import SearchParams
-from qdrant_tpu.types import PayloadIndexParams, StrictModeError, normalize_point_id, parse_filter
-from qdrant_tpu.utils.quota import QuotaExceededError
-from qdrant_tpu.api.issues import ISSUES
-from qdrant_tpu.api.metrics import METRICS
+from ..types import PayloadIndexParams, StrictModeError, normalize_point_id, parse_filter
+from ..utils.quota import QuotaExceededError
+from ..api.issues import ISSUES
+from ..api.metrics import METRICS
 from .toc import TableOfContent
-from qdrant_tpu.utils.hw_counter import measure
-from qdrant_tpu.utils.inference import InferenceError
+from ..utils.hw_counter import measure
+from ..utils.inference import InferenceError
 
 VERSION = "1.19.0-tpu"
 
@@ -136,7 +136,7 @@ def _meta_submit(toc, op):
     node = getattr(toc, "cluster_node", None)
     if node is None:
         return None
-    from qdrant_tpu.cluster.raft import NotLeader
+    from ..cluster.raft import NotLeader
 
     try:
         node.dispatcher.submit(op)
@@ -211,7 +211,7 @@ def h_all_aliases(toc, m, body, q):
 def h_create_vector_name(toc, m, body, q):
     """PUT /collections/{name}/vectors/{vname} — add a named vector to a
     live collection (reference: vector_name_api.rs)."""
-    from qdrant_tpu.types import VectorParams
+    from ..types import VectorParams
 
     vp = VectorParams.from_dict(body or {})
     return toc.get_collection(m["name"]).create_vector_name(m["vname"], vp)
@@ -524,7 +524,7 @@ def h_search(toc, m, body, q):
 def _check_batchsize(coll, n):
     sm = coll.strict_mode_config
     if sm.enabled and sm.search_max_batchsize and n > sm.search_max_batchsize:
-        from qdrant_tpu.types import StrictModeError
+        from ..types import StrictModeError
 
         raise StrictModeError(
             f"batch of {n} searches exceeds strict mode search_max_batchsize "
@@ -760,7 +760,7 @@ def h_dashboard(toc, m, body, q):
     Serves `service.static_content_dir` when present; built-in single-file
     dashboard otherwise (deliberate divergence — the reference's UI ships
     as a separate artifact)."""
-    from qdrant_tpu.api.webui import dashboard_content
+    from ..api.webui import dashboard_content
 
     if not getattr(toc, "static_content_enabled", True):
         raise NotFoundError("static content disabled")
@@ -901,7 +901,7 @@ def h_raft_propose(toc, m, body, q):
     node = getattr(toc, "cluster_node", None)
     if node is None:
         raise ApiError("cluster mode disabled", 404)
-    from qdrant_tpu.cluster.raft import NotLeader
+    from ..cluster.raft import NotLeader
 
     try:
         node.dispatcher.submit(body or {})
@@ -1084,7 +1084,7 @@ def _local_replica(toc, name: str, shard_id: int):
     if cached is None or cached.shard is not shard:
         # identity check: a dropped-then-recreated shard (transfer abort
         # cleanup + fresh replicate) must not resolve to the closed object
-        from qdrant_tpu.cluster.replica_set import LocalReplica
+        from ..cluster.replica_set import LocalReplica
 
         cached = cache[shard_id] = LocalReplica(shard)
     return cached
@@ -1094,7 +1094,7 @@ def h_internal_storage_read(toc, m, body, q):
     """Ranged read of a storage file for peers (reference: StorageRead
     gRPC service, storage_read_service.proto:17-21 — disaggregated-storage
     reads; here on the HTTP internal plane like the rest of cluster/)."""
-    from qdrant_tpu.storage.io_tier import IoTierError, read_local
+    from ..storage.io_tier import IoTierError, read_local
 
     body = body or {}
     rel = body.get("path") or ""
@@ -1161,7 +1161,7 @@ def h_internal_search(toc, m, body, q):
     replica = _local_replica(toc, m["name"], int(m["sid"]))
     flt = parse_filter(body.get("filter"))
     if body.get("sparse_queries") is not None:
-        from qdrant_tpu.types import SparseVector
+        from ..types import SparseVector
 
         queries = [SparseVector.from_dict(d) for d in body["sparse_queries"]]
         return replica.search_sparse(body.get("using") or "", queries, int(body.get("k", 10)), flt)
@@ -1337,13 +1337,13 @@ def h_telemetry(toc, m, body, q):
 def h_get_debugger(toc, m, body, q):
     """Debug/watchdog config (reference: src/actix/api/debug_api.rs
     /debugger + the service_debug deadlock checker, src/main.rs:331-366)."""
-    from qdrant_tpu.utils.debug import WATCHDOG
+    from ..utils.debug import WATCHDOG
 
     return WATCHDOG.config()
 
 
 def h_patch_debugger(toc, m, body, q):
-    from qdrant_tpu.utils.debug import WATCHDOG
+    from ..utils.debug import WATCHDOG
 
     return WATCHDOG.configure(body or {})
 
@@ -1351,7 +1351,7 @@ def h_patch_debugger(toc, m, body, q):
 def h_consistency_check(toc, m, body, q):
     """Read-back data-consistency check (reference: the
     data-consistency-check feature's local_shard verify)."""
-    from qdrant_tpu.utils.debug import check_shard_consistency
+    from ..utils.debug import check_shard_consistency
 
     coll = toc.get_collection(m["name"])
     out = {}

@@ -15,7 +15,7 @@ import threading
 from typing import Any, Dict, List, Optional
 
 from ..collection.collection import Collection, CollectionError, NotFoundError
-from qdrant_tpu.types import (
+from ..types import (
     CollectionParams,
     HnswConfig,
     OptimizersConfig,
@@ -85,7 +85,7 @@ class TableOfContent:
         os.makedirs(storage_path, exist_ok=True)
         # node resource quotas (reference: lib/shard/src/quota/ — the
         # single measurement + enforcement point for memory/disk limits)
-        from qdrant_tpu.utils.quota import QuotaManager
+        from ..utils.quota import QuotaManager
 
         self.quota = QuotaManager(storage_path, quota_config)
         self.collections_path = os.path.join(storage_path, "collections")
@@ -95,14 +95,14 @@ class TableOfContent:
         self.snapshot_store = None
         cfg = snapshots_config or {}
         if cfg.get("snapshots_storage") == "s3":
-            from qdrant_tpu.storage.object_store import S3SnapshotStorage
+            from ..storage.object_store import S3SnapshotStorage
 
             self.snapshot_store = S3SnapshotStorage(cfg.get("s3_config") or {})
         os.makedirs(self.collections_path, exist_ok=True)
         os.makedirs(self.snapshots_path, exist_ok=True)
         # observability: slowest-request log + structured audit trail
         # (reference: profiling/slow_requests_log.rs, src/common/audit.rs)
-        from qdrant_tpu.utils.observability import AuditLog, SlowRequestsLog
+        from ..utils.observability import AuditLog, SlowRequestsLog
 
         self.slow_log = SlowRequestsLog(
             max_entries=int(os.environ.get("QDRANT__SERVICE__SLOW_LOG_MAX", 16)),

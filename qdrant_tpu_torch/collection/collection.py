@@ -20,7 +20,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 
 from ..storage.segment import SearchParams
-from qdrant_tpu.types import (
+from ..types import (
     RateLimitError,
     CollectionParams,
     FieldCondition,
@@ -39,7 +39,7 @@ from qdrant_tpu.types import (
     normalize_point_id,
     parse_filter,
 )
-from qdrant_tpu.collection.hash_ring import HashRing
+from ..collection.hash_ring import HashRing
 from .shard import LocalShard
 
 
@@ -348,7 +348,7 @@ class Collection:
         rate = sm.read_rate_limit if kind == "read" else sm.write_rate_limit
         if not rate:
             return None
-        from qdrant_tpu.utils.rate_limiter import RateLimiter
+        from ..utils.rate_limiter import RateLimiter
 
         lim = self._rate_limiters.get(kind)
         if lim is None or lim.rate != float(rate):
@@ -423,7 +423,7 @@ class Collection:
         resolves in the API conversion layer, src/common/inference/
         update_requests.rs). Local BM25 documents stay as-is (deterministic
         to re-embed at apply time)."""
-        from qdrant_tpu.utils.inference import embed_value
+        from ..utils.inference import embed_value
 
         def needs_remote(v) -> bool:
             if not isinstance(v, dict):
@@ -663,13 +663,13 @@ class Collection:
         return self._search_dense_exec(name, queries, k, flt, params, shard_key)
 
     def _microbatcher(self):
-        from qdrant_tpu.utils.flags import flag_env
+        from ..utils.flags import flag_env
 
         if not flag_env("micro_batching", "QDRANT_TPU_MICROBATCH"):
             return None
         b = getattr(self, "_batcher", None)
         if b is None:
-            from qdrant_tpu.utils.microbatch import MicroBatcher
+            from ..utils.microbatch import MicroBatcher
 
             b = self._batcher = MicroBatcher()
         return b
@@ -901,7 +901,7 @@ class Collection:
         shard_key: Any = None,
     ) -> List[Tuple[Any, int]]:
         """Facet value counts over a payload field (reference: facets API)."""
-        from qdrant_tpu.utils import json_path
+        from ..utils import json_path
 
         counts: Dict[Any, int] = {}
         for shard in self._shards_for_read(shard_key):

@@ -21,7 +21,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 
 from ..storage.segment import SearchParams
-from qdrant_tpu.types import (
+from ..types import (
     Distance,
     Filter,
     HasIdCondition,
@@ -31,7 +31,7 @@ from qdrant_tpu.types import (
     parse_filter,
     DEFAULT_VECTOR_NAME,
 )
-from qdrant_tpu.utils import json_path
+from ..utils import json_path
 
 RRF_K = 60  # reference's rrf constant
 CONTEXT_ZONE_SCALE = 1e6  # discover: rank context-zone count above target score
@@ -129,7 +129,7 @@ class QueryExecutor:
         if isinstance(ref, dict) and (
             "text" in ref or "image" in ref or "object" in ref
         ):
-            from qdrant_tpu.utils.inference import embed_value
+            from ..utils.inference import embed_value
 
             out = embed_value(ref, inference="search")
             if isinstance(out, list):
@@ -383,8 +383,8 @@ class QueryExecutor:
         (reference: problems/unindexed_field.rs)."""
         if flt is None:
             return
-        from qdrant_tpu.api.issues import ISSUES
-        from qdrant_tpu.types import FieldCondition
+        from ..api.issues import ISSUES
+        from ..types import FieldCondition
 
         indexed = getattr(self.collection, "_indexed_fields", lambda: set())()
 
@@ -664,7 +664,7 @@ class QueryExecutor:
         req: QueryRequest,
         limit: int,
     ) -> List[Tuple[float, PointId]]:
-        from qdrant_tpu.collection.formula import evaluate_formula
+        from ..collection.formula import evaluate_formula
 
         # point → per-source scores
         per_point: Dict[PointId, Dict[int, float]] = {}
@@ -686,7 +686,7 @@ class QueryExecutor:
     ) -> List[Dict[str, Any]]:
         out = []
         dist = self._distance(req.using)
-        from qdrant_tpu.utils import hw_counter
+        from ..utils import hw_counter
 
         hw_counter.add(payload_reads=len(items))
         for score, pid in items:
@@ -785,7 +785,7 @@ def _as_number(v: Any) -> Optional[float]:
     if isinstance(v, (int, float)):
         return float(v)
     if isinstance(v, str):
-        from qdrant_tpu.index.payload_index import parse_datetime
+        from ..index.payload_index import parse_datetime
 
         ts = parse_datetime(v)
         return float(ts) if ts is not None else None

@@ -26,10 +26,10 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
-from qdrant_tpu.cluster.clock import ClockMap, ClockTag
+from ..cluster.clock import ClockMap, ClockTag
 from ..storage.segment import SearchParams, Segment
-from qdrant_tpu.storage.wal import open_wal
-from qdrant_tpu.types import (
+from ..storage.wal import open_wal
+from ..types import (
     CollectionParams,
     Filter,
     HnswConfig,
@@ -313,7 +313,7 @@ class LocalShard:
         elif t == "create_vector_name":
             # live named-vector addition (reference: vector_name_api.rs,
             # routed through the update plane like field indexes)
-            from qdrant_tpu.types import VectorParams
+            from ..types import VectorParams
 
             vp = VectorParams.from_dict(op["params"])
             for seg in self.segments:
@@ -456,7 +456,7 @@ class LocalShard:
         seg_lowest: Dict[int, np.ndarray] = {}
         seg_counts: Dict[int, np.ndarray] = {}
         if use_sampling:
-            from qdrant_tpu.collection.sampling import sampling_limit
+            from ..collection.sampling import sampling_limit
 
             total = sum(len(s) for s in active)
             ef_limit = params.hnsw_ef if params is not None else None
@@ -694,8 +694,8 @@ class LocalShard:
                 new_seg = self._defragment_into(victims, appendable=appendable)
                 versions = [v.version for v in victims]
             if need_index:
-                from qdrant_tpu.utils.budget import BUDGET
-                from qdrant_tpu.utils.debug import WATCHDOG
+                from ..utils.budget import BUDGET
+                from ..utils.debug import WATCHDOG
 
                 # permit-gated, lock released — writes proceed, and the
                 # builder yields the device to searches between batches
@@ -895,7 +895,7 @@ def _decode_vectors(vectors: Dict[str, Any]) -> Dict[str, Any]:
         if isinstance(v, dict) and "indices" in v:
             out[name] = SparseVector.from_dict(v)
         elif isinstance(v, dict) and "text" in v:
-            from qdrant_tpu.utils.bm25 import Bm25
+            from ..utils.bm25 import Bm25
 
             out[name] = Bm25(**(v.get("options") or {})).embed_document(v["text"])
         elif isinstance(v, SparseVector):

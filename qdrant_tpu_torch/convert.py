@@ -6,7 +6,9 @@ msgpack payloads) opens unchanged in `qdrant_tpu_torch.api.toc.TableOfContent`,
 whose stores read and write the same files.
 
 `scan_index_from_jax` moves a built JAX `ScanIndex` block onto the device
-without re-deriving it from the f32 rows.
+without re-deriving it from the f32 rows; `quantized_from_jax` carries a JAX
+quantized encoding (SQ, BQ, PQ or TQ) across in memory, where the main route
+is the `quant_*/` directory a JAX-written segment already holds.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import numpy as np
 import torch
 
 from .device import default_device
+from .ops import quantization as qops
 from .ops.fused_scan import DEFAULT_BLK
 from .ops.scan import ScanIndex
 
@@ -50,3 +53,22 @@ def scan_index_from_jax(
     return ScanIndex.from_arrays(
         v, vsq, bias, n=v.shape[0] if n is None else n, euclid=euclid, block=block
     )
+
+
+def quantized_from_jax(q):
+    """The port's quantized encoding of the same type as a JAX
+    `qdrant_tpu.ops.quantization` object, built from its numpy fields (the
+    class is matched by name: the port imports nothing of the JAX package)."""
+    kind = type(q).__name__
+    if kind == "ScalarQuantized":
+        return qops.ScalarQuantized(np.asarray(q.codes), q.scale, np.asarray(q.norms_sq))
+    if kind == "BinaryQuantized":
+        return qops.BinaryQuantized(np.asarray(q.signs))
+    if kind == "ProductQuantized":
+        return qops.ProductQuantized(np.asarray(q.codes), np.asarray(q.codebooks))
+    if kind == "TurboQuantized":
+        return qops.TurboQuantized(
+            np.asarray(q.codes), np.asarray(q.scales), q.rotation_seed, q.bits,
+            np.asarray(q.norms_sq), q.dim,
+        )
+    raise TypeError(f"not a JAX quantized encoding: {kind}")

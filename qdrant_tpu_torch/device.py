@@ -21,6 +21,12 @@ def default_device() -> torch.device:
     return torch.device("cuda") if torch.cuda.is_available() else torch.device("cpu")
 
 
+def tensor_bytes(*tensors: Optional[torch.Tensor]) -> int:
+    """Bytes held by the given tensors (None counts 0), for memory telemetry:
+    the copied memsize walker knows numpy and jax arrays, not torch."""
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
 def force_cpu() -> None:
     """Pin the port to the CPU (the explicit `--force-cpu` switch)."""
     global _FORCED

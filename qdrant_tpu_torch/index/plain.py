@@ -14,7 +14,7 @@ from typing import Any, List, Optional, Tuple
 import numpy as np
 import torch
 
-from qdrant_tpu.types import Distance
+from ..types import Distance
 
 from ..ops.distances import preprocess_vectors, score_and_topk
 from ..storage.vectors import DenseVectorStore

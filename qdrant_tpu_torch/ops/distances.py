@@ -21,7 +21,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from qdrant_tpu.types import Distance
+from ..types import Distance
 
 NEG_INF = float(-np.inf)
 

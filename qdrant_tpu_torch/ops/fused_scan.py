@@ -4,15 +4,23 @@ PyTorch version.
 Counterpart of qdrant_tpu/ops/pallas_scan.py. For every query row the scan
 keeps `slots * 128` survivors: survivor (slot s, lane l) is the best-scoring
 row x = nb*blk + j*128 + l over all vector blocks nb = s (mod slots), ties to
-the earliest row. Scores are `Q . V` in f32 from bf16 operands plus a bias
-(-||v||^2 with V pre-scaled by 2 for euclid, 0 for dot/cosine, NEG_INF for
-deleted or filtered rows). An exact top-k over the survivors and an f32
-rescore of the winners finish the search (plain torch, as XLA finished it
-outside the Pallas kernel).
+the earliest row. Two modes, chosen by the type of `vectors`, as the Pallas
+kernel's `int8_mode`:
+
+  * bf16: scores are `Q . V` in f32 from bf16 operands plus a bias
+    (-||v||^2 with V pre-scaled by 2 for euclid, 0 for dot/cosine);
+  * int8 (scalar-quantized codes): `f32(q_i8 . v_i8) * scale_sq + bias`, the
+    integer product exact and each float step rounded on its own, so kernel
+    and plain version agree bit for bit;
+
+NEG_INF in the bias marks deleted or filtered rows. An exact top-k over the
+survivors and an f32 rescore of the winners finish the search (plain torch,
+as XLA finished it outside the Pallas kernel).
 
 `fused_scan_survivors` launches `csrc/fused_scan.cu` for CUDA tensors and
 runs `fused_scan_survivors_plain` for CPU tensors; it never falls back from
-one to the other. The kernel library is compiled with nvcc at first use into
+one to the other. Launches are counted per mode (`.launches` for bf16,
+`.launches_int8`). The kernel library is compiled with nvcc at first use into
 `build/kernels/` at the repository root.
 """
 
@@ -28,6 +36,8 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+
+from .quantization import int8_dot
 
 LANES = 128
 DEFAULT_BLK = 4096
@@ -83,11 +93,15 @@ def _lib() -> ctypes.CDLL:
     with _LIB_LOCK:
         if _LIB is None:
             lib = ctypes.CDLL(build_library()[0])
-            fn = lib.fused_scan_survivors_bf16
-            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
-                ctypes.c_void_p
-            ]
-            fn.restype = ctypes.c_int
+            ints = [ctypes.c_int] * 5
+            bf16 = lib.fused_scan_survivors_bf16
+            bf16.argtypes = [ctypes.c_void_p] * 5 + ints + [ctypes.c_void_p]
+            int8 = lib.fused_scan_survivors_int8
+            int8.argtypes = (
+                [ctypes.c_void_p] * 3 + [ctypes.c_float]
+                + [ctypes.c_void_p] * 2 + ints + [ctypes.c_void_p]
+            )
+            bf16.restype = int8.restype = ctypes.c_int
             _LIB = lib
         return _LIB
 
@@ -105,8 +119,11 @@ def _check_inputs(queries, vectors, bias, blk, slots):
         raise ValueError(f"rows {n} must be a multiple of blk {blk} (a multiple of 128)")
     if slots < 1:
         raise ValueError("slots must be >= 1")
-    if vectors.dtype != torch.bfloat16:
-        raise TypeError(f"vectors must be bfloat16, got {vectors.dtype}")
+    if vectors.dtype == torch.int8:
+        if queries.dtype != torch.int8:
+            raise TypeError(f"int8 vectors need int8 queries, got {queries.dtype}")
+    elif vectors.dtype != torch.bfloat16:
+        raise TypeError(f"vectors must be bfloat16 or int8, got {vectors.dtype}")
     if bias.dtype != torch.float32:
         raise TypeError(f"bias must be float32, got {bias.dtype}")
     if not (queries.device == vectors.device == bias.device):
@@ -114,22 +131,25 @@ def _check_inputs(queries, vectors, bias, blk, slots):
 
 
 def fused_scan_survivors(
-    queries: torch.Tensor,  # [B, D] bf16 (f32 is cast to bf16)
-    vectors: torch.Tensor,  # [N, D] bf16, N a multiple of blk
+    queries: torch.Tensor,  # [B, D] bf16 (f32 is cast to bf16), or int8 codes
+    vectors: torch.Tensor,  # [N, D] bf16, or int8 codes; N a multiple of blk
     bias: torch.Tensor,  # [N] f32
     blk: int = DEFAULT_BLK,
     slots: int = DEFAULT_SLOTS,
+    scale_sq: Optional[float] = None,  # int8 mode: scale^2 (x2 for euclid)
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """→ (survivor scores [B, slots*128] f32, survivor ids [B, slots*128]
-    int32). CUDA tensors launch the kernel; CPU tensors run the plain version."""
+    int32). int8 `vectors` select the int8 mode. CUDA tensors launch the
+    kernel; CPU tensors run the plain version."""
     _check_inputs(queries, vectors, bias, blk, slots)
     if queries.device.type != "cuda":
-        return fused_scan_survivors_plain(queries, vectors, bias, blk, slots)
+        return fused_scan_survivors_plain(queries, vectors, bias, blk, slots, scale_sq)
+    int8 = vectors.dtype == torch.int8
     b, d = queries.shape
     n = vectors.shape[0]
-    if d % 32:
-        raise ValueError(f"kernel needs D % 32 == 0, got {d}")
-    q = queries.to(torch.bfloat16).contiguous()
+    if d * vectors.element_size() % 64:
+        raise ValueError(f"kernel needs D % {64 // vectors.element_size()} == 0, got {d}")
+    q = (queries if int8 else queries.to(torch.bfloat16)).contiguous()
     if not (vectors.is_contiguous() and bias.is_contiguous()):
         raise ValueError("vectors and bias must be contiguous")
     if q.data_ptr() % 16 or vectors.data_ptr() % 16 or bias.data_ptr() % 8:
@@ -139,17 +159,29 @@ def fused_scan_survivors(
     lib = _lib()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.fused_scan_survivors_bf16(
-            q.data_ptr(), vectors.data_ptr(), bias.data_ptr(),
-            out_s.data_ptr(), out_i.data_ptr(), b, n, d, blk, slots, stream,
-        )
+        ptrs = (q.data_ptr(), vectors.data_ptr(), bias.data_ptr())
+        outs = (out_s.data_ptr(), out_i.data_ptr(), b, n, d, blk, slots, stream)
+        if int8:
+            err = lib.fused_scan_survivors_int8(*ptrs, _scale(scale_sq), *outs)
+        else:
+            err = lib.fused_scan_survivors_bf16(*ptrs, *outs)
     if err != 0:
         raise RuntimeError(f"fused_scan kernel launch failed: CUDA error {err}")
-    fused_scan_survivors.launches += 1
+    if int8:
+        fused_scan_survivors.launches_int8 += 1
+    else:
+        fused_scan_survivors.launches += 1
     return out_s, out_i
 
 
-fused_scan_survivors.launches = 0
+fused_scan_survivors.launches = 0  # bf16 mode
+fused_scan_survivors.launches_int8 = 0
+
+
+def _scale(scale_sq: Optional[float]) -> float:
+    """The int8 mode's score scale as an f32 value (1.0 when not given, as
+    pallas_scan_survivors defaults it)."""
+    return float(np.float32(1.0 if scale_sq is None else scale_sq))
 
 
 def fused_scan_survivors_plain(
@@ -158,11 +190,21 @@ def fused_scan_survivors_plain(
     bias: torch.Tensor,
     blk: int = DEFAULT_BLK,
     slots: int = DEFAULT_SLOTS,
+    scale_sq: Optional[float] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Torch-op version with the TPU kernel's exact semantics: per block, a
-    lane-group max over the blk/128 column groups (first group wins ties),
-    then a strict-'>' merge into slot nb % slots."""
-    q = queries.to(torch.bfloat16).float()
+    lane-group max over the blk/128 column groups (the first group wins
+    ties), then a strict-'>' merge into slot nb % slots.
+
+    int8 mode takes the exact integer dot rounded once to f32
+    (quantization.int8_dot), then multiplies by scale_sq and adds the bias
+    as separate f32 ops — the kernel's roundings."""
+    int8 = vectors.dtype == torch.int8
+    if int8:
+        q = queries
+        scale = torch.tensor(_scale(scale_sq), dtype=torch.float32, device=q.device)
+    else:
+        q = queries.to(torch.bfloat16).float()
     b = q.shape[0]
     n = vectors.shape[0]
     g = blk // LANES
@@ -171,10 +213,16 @@ def fused_scan_survivors_plain(
     out_i = torch.full((b, slots * LANES), -1, dtype=torch.int32,
                        device=q.device)
     lane = torch.arange(LANES, dtype=torch.int64, device=q.device)
+    group = torch.arange(g, dtype=torch.int64, device=q.device)[None, :, None]
     for nb in range(n // blk):
         rows = slice(nb * blk, (nb + 1) * blk)
-        s = q @ vectors[rows].float().T + bias[rows]
-        bmax, idx = s.view(b, g, LANES).max(dim=1)
+        if int8:
+            s = int8_dot(q, vectors[rows]) * scale + bias[rows]
+        else:
+            s = q @ vectors[rows].float().T + bias[rows]
+        s = s.view(b, g, LANES)
+        bmax = s.max(dim=1).values
+        idx = torch.where(s == bmax[:, None, :], group, g).min(dim=1).values
         row_id = (nb * blk + idx * LANES + lane).to(torch.int32)
         cols = slice((nb % slots) * LANES, (nb % slots + 1) * LANES)
         better = bmax > out_s[:, cols]
@@ -190,9 +238,10 @@ def fused_scan_topk(
     k: int,
     blk: int = DEFAULT_BLK,
     slots: int = DEFAULT_SLOTS,
+    scale_sq: Optional[float] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Survivors + exact top-k over them → (scores [B, k], ids [B, k])."""
-    s, i = fused_scan_survivors(queries, vectors, bias, blk, slots)
+    s, i = fused_scan_survivors(queries, vectors, bias, blk, slots, scale_sq)
     top_s, ti = torch.topk(s, k, dim=1)
     top_i = torch.gather(i, 1, ti)
     top_i = torch.where(top_s > NEG_INF / 2, top_i, -1)
@@ -202,8 +251,8 @@ def fused_scan_topk(
 
 def fused_scan_rescore(
     queries: torch.Tensor,  # [B, D] f32 (distance-preprocessed, un-scaled)
-    scan_queries: torch.Tensor,  # [B, D] what the kernel scores with
-    vectors: torch.Tensor,  # [N, D] bf16 pre-scaled
+    scan_queries: torch.Tensor,  # [B, D] what the kernel scores with (f32/int8)
+    vectors: torch.Tensor,  # [N, D] bf16 pre-scaled, or int8 codes
     bias: torch.Tensor,  # [N] f32
     vectors_f32: torch.Tensor,  # [Nf, D'] rescore source, same row space
     k_fetch: int,
@@ -211,10 +260,12 @@ def fused_scan_rescore(
     blk: int = DEFAULT_BLK,
     slots: int = DEFAULT_SLOTS,
     euclid: bool = False,
+    scale_sq: Optional[float] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused scan + exact f32 rescore of the k_fetch oversampled winners
     (pallas_scan_rescore's semantics)."""
-    _, cand = fused_scan_topk(scan_queries, vectors, bias, k_fetch, blk, slots)
+    _, cand = fused_scan_topk(scan_queries, vectors, bias, k_fetch, blk, slots,
+                              scale_sq)
     safe = torch.clamp(cand, min=0).long()
     cv = vectors_f32[safe].float()  # [B, k_fetch, D']
     q = queries[:, : cv.shape[-1]].float()

@@ -2,16 +2,21 @@
 qdrant_tpu/storage/segment.py).
 
 Id tracker + named dense vector stores + payload storage / index, with
-versioned idempotent ops keyed by op_num. Every dense search answers
-exactly through PlainIndex (the fused scan kernel at 65,536 rows or more).
-Sealing a segment (`build_indexes`) builds no graph in this port.
+versioned idempotent ops keyed by op_num. A dense search answers exactly
+through PlainIndex (the fused scan kernel's bf16 mode at 65,536 rows or
+more), unless the vector is quantized: sealing (`build_indexes`) encodes a
+vector with a quantization config as the JAX seal does, and its searches
+score the codes, oversample and rescore in f32 — through the fused scan
+kernel's int8 mode for SQ at 65,536 rows or more. Sealing builds no graph in
+this port.
 
 Not ported yet, and refused rather than served differently: sparse vectors,
-multivectors and quantization raise NotImplementedError when a segment with
-such a config is created, and a search that the JAX engine would send to an
-HNSW graph (`params.hnsw_ef` on a sealed segment) raises too. The on-disk
-format is the JAX package's; loading a JAX-written segment keeps its graph
-and quantization files on disk and listed in segment.json untouched.
+multivectors and quantization of an on-disk vector (the quantized-primary
+tier) raise NotImplementedError when a segment with such a config is
+created, and a search that the JAX engine would send to an HNSW graph
+(`params.hnsw_ef` on a sealed segment) raises too. The on-disk format is the
+JAX package's; loading a JAX-written segment keeps its graph files on disk
+and listed in segment.json untouched.
 """
 
 from __future__ import annotations
@@ -22,20 +27,29 @@ import os
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
-from qdrant_tpu.index.payload_index import StructPayloadIndex
-from qdrant_tpu.storage.id_tracker import IdTracker
-from qdrant_tpu.storage.payload import PayloadStorage
-from qdrant_tpu.types import (
+from ..device import default_device
+from ..index.payload_index import StructPayloadIndex
+from ..ops import quantization as qops
+from ..ops.distances import preprocess_vectors, score_ids_batch
+from ..storage.id_tracker import IdTracker
+from ..storage.payload import PayloadStorage
+from ..types import (
+    BinaryQuantizationConfig,
     CollectionParams,
+    Distance,
     Filter,
     HnswConfig,
     PayloadIndexParams,
     PointId,
+    ProductQuantizationConfig,
+    ScalarQuantizationConfig,
+    TurboQuantizationConfig,
     VectorParams,
 )
-from qdrant_tpu.utils import hw_counter
-from qdrant_tpu.utils.budget import BUDGET
+from ..utils import hw_counter
+from ..utils.budget import BUDGET
 
 from ..index.plain import PlainIndex, fetch_to_host, finalize_device_result
 from .vectors import DenseVectorStore
@@ -43,7 +57,7 @@ from .vectors import DenseVectorStore
 
 def _with_search_budget(fn):
     """Register the call as an in-flight search so optimizer builds yield
-    the device between batches (qdrant_tpu/utils/budget.py)."""
+    the device between batches (utils/budget.py)."""
 
     @functools.wraps(fn)
     def wrapper(*a, **kw):
@@ -79,6 +93,11 @@ def set_low_memory_mode(mode: str) -> None:
 # On-disk segment format version, shared with the JAX package.
 SEGMENT_FORMAT_VERSION = 2
 
+DEFAULT_OVERSAMPLING = 3.0
+# store size from which an SQ search takes the fused scan's int8 mode (below
+# it one [B, N] scoring product and a top-k win)
+FLAT_SCAN_MIN_N = 65536
+
 
 class SegmentFormatError(Exception):
     pass
@@ -107,11 +126,15 @@ def refuse_unported(params: CollectionParams) -> None:
         _refuse_vector(name, vp)
 
 
+_NOT_PORTED_TIER = (
+    "the quantized-primary tier (quantization of an on-disk vector) is "
+    + _NOT_PORTED.format("1: quantized-primary tier")
+)
+
+
 def _refuse_vector(name: str, vp: VectorParams) -> None:
-    if vp.quantization_config is not None:
-        raise NotImplementedError(
-            f"quantization of vector {name!r} is " + _NOT_PORTED.format("1: quantized")
-        )
+    if vp.quantization_config is not None and vp.on_disk:
+        raise NotImplementedError(f"vector {name!r}: " + _NOT_PORTED_TIER)
     if vp.multivector_config is not None:
         raise NotImplementedError(
             f"multivector {name!r} is " + _NOT_PORTED.format("3: graph and multivector")
@@ -171,7 +194,7 @@ class Segment:
         self.hnsw: Dict[str, Any] = {}
         self.hnsw_multi: Dict[str, Any] = {}
         self.hnsw_blocks: Dict[str, Any] = {}
-        self.quantized: Dict[str, Any] = {}
+        self.quantized: Dict[str, Any] = {}  # name → qops.*Quantized (sealed)
         # segment.json entries for indexes written by the JAX package, kept
         # as they were so that package still finds its files
         self._foreign_meta: Dict[str, Any] = {}
@@ -207,6 +230,7 @@ class Segment:
             return  # idempotent under WAL replay
         self.params.vectors.pop(name, None)
         self.dense.pop(name, None)
+        self.quantized.pop(name, None)
 
     # ------------------------------------------------------------------
     # introspection
@@ -216,10 +240,11 @@ class Segment:
         return len(self.id_tracker)
 
     def memory_usage_bytes(self) -> Dict[str, Any]:
-        from qdrant_tpu.utils.memsize import merge, sizeof, total
+        from ..utils.memsize import merge, sizeof, total
 
         parts = {
             "dense": merge(*(sizeof(s) for s in self.dense.values())),
+            "quantized": merge(*(sizeof(q) for q in self.quantized.values())),
             "payload_index": sizeof(self.payload_index),
             "payload_storage": sizeof(self.payload_storage),
         }
@@ -608,6 +633,9 @@ class Segment:
                 "HNSW graph search is " + _NOT_PORTED.format("3: graph and multivector")
                 + "; pass params.exact=true for the exact scan"
             )
+        quant = None if params.quantization_ignore else self.quantized.get(name)
+        if quant is not None and not params.exact:
+            return self._search_quantized(name, quant, queries, k, combined, params)
         return ("dev", PlainIndex(store).search_device(queries, k, combined), k)
 
     def _would_use_graph(
@@ -631,19 +659,155 @@ class Segment:
             return False
         return explicit_ef or len(combined_mask) >= GRAPH_CROSSOVER_ROWS
 
+    def _search_quantized(
+        self,
+        name: str,
+        quant: Any,
+        queries: np.ndarray,
+        k: int,
+        mask: np.ndarray,
+        params: SearchParams,
+    ):
+        """Quantized full scan + oversampled f32 rescore → a device-resident
+        dispatch handle, like PlainIndex's (the JAX engine resolves the same
+        search synchronously; the answers are the same)."""
+        store = self.dense[name]
+        if store.on_disk:  # a low-memory-mode load moves the f32 rows to disk
+            raise NotImplementedError(f"vector {name!r}: " + _NOT_PORTED_TIER)
+        q = preprocess_vectors(queries, store.distance)
+        oversampling = params.quantization_oversampling or DEFAULT_OVERSAMPLING
+        k_over = min(max(int(k * oversampling), k), max(int(mask.sum()), 1))
+        if isinstance(quant, qops.ScalarQuantized) and len(store) >= FLAT_SCAN_MIN_N:
+            return self._search_sq_kernel(quant, store, q, k, k_over, mask, params)
+        dev = default_device()
+        distance = store.distance.value
+
+        def valid(rows: int) -> torch.Tensor:
+            m = np.zeros(rows, dtype=bool)
+            m[: len(mask)] = mask[:rows]
+            return torch.from_numpy(m).to(dev)
+
+        if isinstance(quant, qops.ScalarQuantized):
+            codes, norms = quant.device()
+            scores = qops.score_sq(
+                torch.from_numpy(quant.encode_queries(q)).to(dev),
+                torch.from_numpy((q * q).sum(axis=1).astype(np.float32)).to(dev),
+                codes, norms, quant.scale, distance, valid(codes.shape[0]),
+            )
+        elif isinstance(quant, qops.BinaryQuantized):
+            signs = quant.device()
+            scores = qops.score_bq(
+                torch.from_numpy(q).to(dev), signs, distance, valid(signs.shape[0])
+            )
+        elif isinstance(quant, qops.TurboQuantized):
+            recon, scales, norms = quant.device()
+            scores = qops.score_tq(
+                torch.from_numpy(quant.rotate_queries(q)).to(dev),
+                recon, scales, norms, distance, valid(recon.shape[0]),
+            )
+        elif isinstance(quant, qops.ProductQuantized):
+            codes = quant.device()
+            lut = quant.query_lut(q, store.distance)
+            scores = qops.score_pq(
+                torch.from_numpy(lut).to(dev), codes, valid(codes.shape[0])
+            )
+        else:  # pragma: no cover
+            raise ValueError(f"unknown quantization {type(quant)}")
+
+        b, kk = len(q), min(k, k_over)
+        top_scores, top_ids = torch.topk(scores, k_over, dim=1)
+        if not params.quantization_rescore:
+            return ("dev", (top_scores[:, :kk], top_ids[:, :kk], b, kk), k)
+        vectors, _ = store.device_block()
+        cand = torch.where(torch.isfinite(top_scores), top_ids, -1)
+        re_scores = score_ids_batch(torch.from_numpy(q).to(dev), vectors, cand, distance)
+        re_top, re_idx = torch.topk(re_scores, kk, dim=1)
+        return ("dev", (re_top, torch.gather(cand, 1, re_idx), b, kk), k)
+
+    def _search_sq_kernel(
+        self, quant, store, q: np.ndarray, k: int, k_over: int,
+        mask: np.ndarray, params: SearchParams,
+    ):
+        """SQ at FLAT_SCAN_MIN_N rows or more (the JAX engine's
+        `_search_sq_pallas`): the fused scan's int8 mode over the codes, then
+        an exact f32 rescore of the oversampled winners, or codes-only scores
+        when `rescore` is off."""
+        from ..ops import fused_scan as fs
+
+        k_over = min(max(k_over, 128), 1024)
+        codes_dev, norms_host, n_pad = quant.kernel_device(fs.DEFAULT_BLK)
+        # The JAX engine sizes blk to the TPU's 16 MB VMEM window
+        # (pallas_block_for / pallas_qt_slots). At D <= 512 and batches under
+        # 512 rows it also scans 4,096-row blocks with 16 slots, so the
+        # survivors are the same; at D = 1536 it takes blk 2,048, which bins
+        # rows differently into the same 2,048 survivors.
+        blk, slots = fs.scan_grid(n_pad, k_over)
+        euclid = store.distance in (Distance.EUCLID, Distance.MANHATTAN)
+        mask_pad = np.zeros(n_pad, dtype=bool)
+        mask_pad[: len(mask)] = mask[:n_pad]
+        bias = np.where(
+            mask_pad, -norms_host if euclid else 0.0, fs.NEG_INF
+        ).astype(np.float32)
+        scale_sq = (2.0 if euclid else 1.0) * quant.scale * quant.scale
+        b = q.shape[0]
+        b_pad = max(8, (b + 7) // 8 * 8)
+        q_codes = np.zeros((b_pad, codes_dev.shape[1]), dtype=np.int8)
+        q_codes[:b, : q.shape[1]] = quant.encode_queries(q)
+        dev = codes_dev.device
+        q_codes_dev = torch.from_numpy(q_codes).to(dev)
+        bias_dev = torch.from_numpy(bias).to(dev)
+        kk = min(k, k_over)
+        if params.quantization_rescore:
+            vectors_f32, _ = store.device_block()
+            q_f32 = np.zeros((b_pad, vectors_f32.shape[1]), dtype=np.float32)
+            q_f32[:b, : q.shape[1]] = q
+            s, i = fs.fused_scan_rescore(
+                torch.from_numpy(q_f32).to(dev), q_codes_dev, codes_dev, bias_dev,
+                vectors_f32, k_over, kk, blk=blk, slots=slots, euclid=euclid,
+                scale_sq=scale_sq,
+            )
+        else:
+            s, i = fs.fused_scan_topk(
+                q_codes_dev, codes_dev, bias_dev, kk, blk=blk, slots=slots,
+                scale_sq=scale_sq,
+            )
+            if euclid:
+                q_sq = np.zeros((b_pad, 1), dtype=np.float32)
+                q_sq[:b] = (q * q).sum(axis=1, keepdims=True)
+                s = torch.where(i >= 0, s - torch.from_numpy(q_sq).to(dev), -np.inf)
+        return ("dev", (s, i, b, kk), k)
+
     # ------------------------------------------------------------------
     # seal
     # ------------------------------------------------------------------
 
     def build_indexes(self, default_hnsw: Optional[HnswConfig] = None) -> None:
         """Seal the segment. No graph is built: the exact scan serves every
-        search this port accepts. The scan block is uploaded now, so the
-        first search after sealing pays no upload."""
+        search this port accepts. A vector with a quantization config is
+        encoded as the JAX seal encodes it, and its codes are uploaded (SQ
+        at FLAT_SCAN_MIN_N rows or more in the fused scan's int8 layout);
+        any other vector uploads its bf16 scan block. Either way the first
+        search after sealing pays no upload of what it scans."""
         from ..index.plain import SCAN_THRESHOLD
+        from ..ops.fused_scan import DEFAULT_BLK
 
-        for store in self.dense.values():
-            if len(store) >= SCAN_THRESHOLD:  # PlainIndex's own gate
-                store.scan_index()
+        for name, vp in self.params.vectors.items():
+            store = self.dense.get(name)
+            if store is None:
+                continue
+            qc = vp.quantization_config
+            if qc is None:
+                if len(store) >= SCAN_THRESHOLD:  # PlainIndex's own gate
+                    store.scan_index()
+                continue
+            if len(store) == 0:
+                continue
+            quant = _encode(qc, store.host_array)
+            self.quantized[name] = quant
+            if isinstance(quant, qops.ScalarQuantized) and len(store) >= FLAT_SCAN_MIN_N:
+                quant.kernel_device(DEFAULT_BLK)
+            else:
+                quant.device()
         self.appendable = False
 
     # ------------------------------------------------------------------
@@ -664,7 +828,9 @@ class Segment:
             "hnsw": [],
             "hnsw_multi": [],
             "hnsw_blocks": {},
-            "quantized": {},
+            "quantized": {
+                name: type(q).__name__ for name, q in self.quantized.items()
+            },
             "payload_backend": (
                 "memory"
                 if isinstance(self.payload_storage, PayloadStorage)
@@ -678,6 +844,8 @@ class Segment:
         self.payload_storage.save(path)
         for name, store in self.dense.items():
             store.save(os.path.join(path, f"dense_{_safe(name)}"))
+        for name, q in self.quantized.items():
+            q.save(os.path.join(path, f"quant_{_safe(name)}"))
 
     @classmethod
     def load(cls, path: str) -> "Segment":
@@ -690,7 +858,7 @@ class Segment:
         seg.deferred = set(meta.get("deferred", []))
         seg.id_tracker = IdTracker.load(path)
         if meta.get("payload_backend") == "gridstore":
-            from qdrant_tpu.storage.payload import GridPayloadStorage
+            from ..storage.payload import GridPayloadStorage
 
             seg.payload_storage = GridPayloadStorage.load(path)
         else:
@@ -709,9 +877,13 @@ class Segment:
             seg.payload_index.set_indexed(field, PayloadIndexParams.from_dict(pdict))
         seg._foreign_meta = {
             key: meta[key]
-            for key in ("hnsw", "hnsw_multi", "hnsw_blocks", "quantized")
+            for key in ("hnsw", "hnsw_multi", "hnsw_blocks")
             if meta.get(key)
         }
+        for name, qtype in meta.get("quantized", {}).items():
+            cls_ = _QUANTIZED_TYPES.get(qtype)
+            if cls_ is not None:
+                seg.quantized[name] = cls_.load(os.path.join(path, f"quant_{_safe(name)}"))
         if _LOW_MEMORY_MODE == "no_populate":
             for store in seg.dense.values():
                 store.drop_device()
@@ -720,3 +892,28 @@ class Segment:
 
 def _safe(name: str) -> str:
     return name if name else "_default"
+
+
+_QUANTIZED_TYPES = {
+    cls.__name__: cls
+    for cls in (
+        qops.ScalarQuantized,
+        qops.BinaryQuantized,
+        qops.ProductQuantized,
+        qops.TurboQuantized,
+    )
+}
+
+
+def _encode(qc, data: np.ndarray):
+    """Quantize a sealed vector's rows as the JAX seal does."""
+    if isinstance(qc, ScalarQuantizationConfig):
+        return qops.ScalarQuantized.encode(data, qc.quantile or 0.99)
+    if isinstance(qc, BinaryQuantizationConfig):
+        return qops.BinaryQuantized.encode(data)
+    if isinstance(qc, ProductQuantizationConfig):
+        return qops.ProductQuantized.encode(data, qc.compression)
+    if isinstance(qc, TurboQuantizationConfig):
+        bits = {"bits1": 1, "bits1_5": 1.5, "bits2": 2, "bits4": 4}[qc.bits]
+        return qops.TurboQuantized.encode(data, bits=bits)
+    raise ValueError(f"unknown quantization config {qc!r}")

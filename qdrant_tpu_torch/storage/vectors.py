@@ -16,9 +16,9 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from qdrant_tpu.types import Datatype, Distance
+from ..types import Datatype, Distance
 
-from ..device import default_device
+from ..device import default_device, tensor_bytes
 from ..ops.distances import preprocess_vectors
 
 _MIN_CAP = 1024
@@ -38,10 +38,6 @@ _DTYPE_MAP = {
     Datatype.FLOAT16: torch.float16,
     Datatype.UINT8: torch.uint8,
 }
-
-
-def tensor_bytes(*tensors: Optional[torch.Tensor]) -> int:
-    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
 class DenseVectorStore:
@@ -200,7 +196,7 @@ class DenseVectorStore:
     def memory_usage_bytes(self):
         """Host/device/disk bytes for this store incl. its device mirror
         and cached scan searcher."""
-        from qdrant_tpu.utils.memsize import merge, sizeof, sizeof_attrs
+        from ..utils.memsize import merge, sizeof, sizeof_attrs
 
         return merge(
             sizeof_attrs(self, "_data", "_deleted"),

@@ -101,8 +101,8 @@ def build_telemetry(toc, level: int = 2) -> Dict[str, Any]:
     level 3: + per-shard detail per collection
     level 4: + per-segment detail
     """
-    from qdrant_tpu.api.metrics import METRICS
-    from qdrant_tpu.utils.flags import feature_flags
+    from ..api.metrics import METRICS
+    from ..utils.flags import feature_flags
 
     level = max(0, min(int(level), 4))
     collections = []
@@ -113,7 +113,7 @@ def build_telemetry(toc, level: int = 2) -> Dict[str, Any]:
         coll = toc.get_collection(name)
         entry: Dict[str, Any] = {"id": name, **coll.info()}
         if level >= 3:
-            from qdrant_tpu.utils.memsize import merge, total
+            from ..utils.memsize import merge, total
 
             shards = []
             coll_mem = merge()

@@ -3,9 +3,11 @@ version (the CPU has no CUDA kernel to run: these tests skip there).
 
 Run on a GPU machine:  python -m pytest tests/test_torch_cuda.py -m cuda -q
 
-Tolerance: survivor scores within D * 2^-23 * max|q| * max|v| (+2 ulp of
-the largest score) — a worst-case bound for summing D bf16 products in f32
-in another order; ids equal wherever the winner beats the runner-up by more.
+Tolerance, bf16 mode: survivor scores within D * 2^-23 * max|q| * max|v|
+(+2 ulp of the largest score) — a worst-case bound for summing D bf16
+products in f32 in another order; ids equal wherever the winner beats the
+runner-up by more. int8 mode: bit for bit (the integer dot is exact in
+both, and both round the scale and the bias add separately).
 """
 
 import numpy as np
@@ -78,3 +80,37 @@ def test_kernel_rejects_mixed_devices(cuda):
     q, v, bias = _inputs(cuda, 8, 4096, 128, False)
     with pytest.raises(ValueError):
         fs.fused_scan_survivors(q.cpu(), v, bias, 128, 4)
+
+
+@pytest.mark.parametrize(
+    "b,n_pad,d,blk,slots,euclid",
+    [
+        (5, 8192, 128, 256, 4, True),  # B not a multiple of the 32-row tile
+        (37, 65536, 1536, 4096, 16, False),
+        (8, 4096 * 3, 128, 4096, 16, False),  # more slots than blocks
+        (64, 65536, 1536, 2048, 16, True),
+    ],
+)
+def test_int8_kernel_matches_plain_bit_exact(cuda, b, n_pad, d, blk, slots, euclid):
+    rng = np.random.default_rng(1)
+    # small codes: integer scores tie often, and the earliest row must win
+    v = torch.from_numpy(rng.integers(-8, 9, (n_pad, d)).astype(np.int8)).to(cuda)
+    q = torch.from_numpy(rng.integers(-8, 9, (b, d)).astype(np.int8)).to(cuda)
+    dead = rng.random(n_pad) < 0.1
+    live = -rng.integers(0, 8, n_pad).astype(np.float32) if euclid else 0.0
+    bias = torch.from_numpy(np.where(dead, fs.NEG_INF, live).astype(np.float32)).to(cuda)
+    scale_sq = float(np.float32((2.0 if euclid else 1.0) * 0.0123 ** 2))
+    before = fs.fused_scan_survivors.launches_int8
+    ks, ki = fs.fused_scan_survivors(q, v, bias, blk, slots, scale_sq)
+    ps, pi = fs.fused_scan_survivors_plain(q, v, bias, blk, slots, scale_sq)
+    torch.cuda.synchronize()
+    assert fs.fused_scan_survivors.launches_int8 == before + 1
+    assert torch.equal(ki, pi)
+    assert torch.equal(ks, ps)
+
+
+def test_int8_kernel_rejects_width_not_multiple_of_64(cuda):
+    q = torch.zeros((8, 96), dtype=torch.int8, device=cuda)
+    v = torch.zeros((4096, 96), dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError):
+        fs.fused_scan_survivors(q, v, torch.zeros(4096, device=cuda), 128, 4, 1.0)

@@ -14,6 +14,7 @@ import torch
 from qdrant_tpu.ops import distances as jd
 from qdrant_tpu.types import Distance
 from qdrant_tpu_torch.ops import distances as td
+from qdrant_tpu_torch.types import Distance as PortDistance
 
 DISTANCES = [d.value for d in Distance]
 RTOL, ATOL = 1e-5, 1e-4
@@ -102,5 +103,5 @@ def test_preprocess_matches_jax():
     x = rng.standard_normal((10, 5)).astype(np.float32)
     x[3] = 0.0  # zero vector stays zero under cosine
     for dist in Distance:
-        np.testing.assert_array_equal(td.preprocess_vectors(x, dist),
+        np.testing.assert_array_equal(td.preprocess_vectors(x, PortDistance(dist.value)),
                                       jd.preprocess_vectors(x, dist))

@@ -1,13 +1,14 @@
 """Guards on the port's boundaries.
 
-* qdrant_tpu_torch runs with jax made unimportable: a subprocess blocks jax,
-  serves REST over a TableOfContent on the CPU and runs a search; no import
-  of jax was even attempted, and no qdrant_tpu module that imports jax is
-  loaded afterwards.
-* No source file of the port imports jax.
-* The shell modules copied from qdrant_tpu (shard, collection, query, toc,
-  rest, openapi) equal their originals once import lines are normalised, so
-  the copies cannot drift apart.
+* qdrant_tpu_torch runs with jax and qdrant_tpu made unimportable: a
+  subprocess blocks both, serves REST over a TableOfContent on the CPU and
+  runs a search; no import of either was even attempted, and no qdrant_tpu
+  module is loaded afterwards.
+* No source file of the port (nor chip_smoke.py) imports jax or qdrant_tpu.
+* The modules copied from qdrant_tpu (the REST / collection shell, and the
+  jax-free modules the port shares with the reference unchanged) equal their
+  originals once import lines are normalised, so the copies cannot drift
+  apart.
 """
 
 import os
@@ -19,21 +20,24 @@ import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 JAX_IMPORT = re.compile(r"^\s*(import jax\b|from jax\b)", re.M)
+REFERENCE_IMPORT = re.compile(r"^\s*(from|import) qdrant_tpu\b", re.M)
 
 _SUBPROCESS = r"""
-import builtins, importlib, json, pkgutil, sys, tempfile, urllib.request
+import builtins, importlib, importlib.util, json, pkgutil, sys, tempfile, urllib.request
 sys.modules["jax"] = None  # any `import jax` now raises ImportError
+sys.modules["qdrant_tpu"] = None  # ... and so does any import of the reference
 attempts = []  # ... and is recorded, even where the caller swallows the error
 _import = builtins.__import__
 def _recording_import(name, *args, **kwargs):
-    if name == "jax" or name.startswith("jax."):
+    if name.split(".")[0] in ("jax", "qdrant_tpu"):
         attempts.append(name)
     return _import(name, *args, **kwargs)
 builtins.__import__ = _recording_import
 import numpy as np
 import qdrant_tpu_torch
 for m in pkgutil.walk_packages(qdrant_tpu_torch.__path__, "qdrant_tpu_torch."):
-    importlib.import_module(m.name)
+    if importlib.util.find_spec(m.name).origin.endswith(".py"):  # not native/*.so
+        importlib.import_module(m.name)
 from qdrant_tpu_torch.api.rest import RestServer
 from qdrant_tpu_torch.api.toc import TableOfContent
 from qdrant_tpu_torch.device import default_device
@@ -58,24 +62,9 @@ call("GET", "/openapi.json")
 srv.shutdown()
 toc.close()
 print(json.dumps({"attempts": attempts,
-                  "loaded": sorted(m for m in sys.modules if m.startswith("qdrant_tpu."))}))
+                  "loaded": sorted(m for m in sys.modules
+                                   if m.split(".")[0] == "qdrant_tpu" and sys.modules[m])}))
 """
-
-
-def _jax_modules():
-    """qdrant_tpu modules whose source imports jax (the package's own
-    __init__ excepted: it swallows a failed jax import)."""
-    out = set()
-    base = os.path.join(ROOT, "qdrant_tpu")
-    for dirpath, _, files in os.walk(base):
-        for f in files:
-            if f.endswith(".py") and f != "__init__.py":
-                path = os.path.join(dirpath, f)
-                with open(path) as fh:
-                    if JAX_IMPORT.search(fh.read()):
-                        rel = os.path.relpath(path, ROOT)[:-3]
-                        out.add(rel.replace(os.sep, "."))
-    return out
 
 
 def test_port_runs_with_jax_blocked():
@@ -89,21 +78,37 @@ def test_port_runs_with_jax_blocked():
 
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out["attempts"] == []  # not even a swallowed `import jax`
-    loaded = set(out["loaded"])
-    jax_mods = _jax_modules()
-    assert "qdrant_tpu.storage.segment" in jax_mods  # the scan found them
-    assert not loaded & jax_mods, sorted(loaded & jax_mods)
+    assert out["loaded"] == []
 
 
-def test_no_jax_import_in_port_sources():
-    offenders = []
+def _port_sources():
     for dirpath, _, files in os.walk(os.path.join(ROOT, "qdrant_tpu_torch")):
         for f in files:
             if f.endswith(".py"):
-                with open(os.path.join(dirpath, f)) as fh:
-                    if JAX_IMPORT.search(fh.read()):
-                        offenders.append(os.path.join(dirpath, f))
-    assert not offenders
+                yield os.path.join(dirpath, f)
+    yield os.path.join(ROOT, "chip_smoke.py")
+
+
+def _offenders(pattern):
+    out = []
+    for path in _port_sources():
+        with open(path) as fh:
+            if pattern.search(fh.read()):
+                out.append(os.path.relpath(path, ROOT))
+    return out
+
+
+def test_no_jax_import_in_port_sources():
+    assert not _offenders(JAX_IMPORT)
+
+
+def test_no_reference_package_import_in_port_sources():
+    """`qdrant_tpu_torch` itself does not match: the pattern ends at a word
+    boundary after `qdrant_tpu`."""
+    assert not _offenders(REFERENCE_IMPORT)
+    assert REFERENCE_IMPORT.search("from qdrant_tpu.types import Distance")
+    assert REFERENCE_IMPORT.search("    import qdrant_tpu")
+    assert not REFERENCE_IMPORT.search("from qdrant_tpu_torch.types import Distance")
 
 
 _FROM = re.compile(r"^(\s*)from (\.+)?([\w.]*) import (.*)$")
@@ -130,16 +135,76 @@ def _normalised(pkg: str, rel: str):
     return out
 
 
-@pytest.mark.parametrize(
-    "rel",
-    [
-        "collection/shard.py",
-        "collection/collection.py",
-        "collection/query.py",
-        "api/toc.py",
-        "api/rest.py",
-        "api/openapi.py",
-    ],
-)
+COPIED = [
+    # the REST / collection shell
+    "collection/shard.py",
+    "collection/collection.py",
+    "collection/query.py",
+    "api/toc.py",
+    "api/rest.py",
+    "api/openapi.py",
+    # modules shared with the reference unchanged
+    "api/auth.py",
+    "api/issues.py",
+    "api/metrics.py",
+    "api/webui.py",
+    "cluster/__init__.py",
+    "cluster/clock.py",
+    "cluster/raft.py",
+    "cluster/replica_set.py",
+    "collection/formula.py",
+    "collection/hash_ring.py",
+    "collection/sampling.py",
+    "index/payload_index.py",
+    "native/__init__.py",
+    "native/wal.cpp",
+    "native/gridstore.cpp",
+    "settings.py",
+    "storage/id_tracker.py",
+    "storage/io_tier.py",
+    "storage/object_store.py",
+    "storage/payload.py",
+    "storage/wal.py",
+    "types.py",
+    "utils/bm25.py",
+    "utils/budget.py",
+    "utils/debug.py",
+    "utils/flags.py",
+    "utils/hw_counter.py",
+    "utils/inference.py",
+    "utils/json_path.py",
+    "utils/memsize.py",
+    "utils/microbatch.py",
+    "utils/observability.py",
+    "utils/quota.py",
+    "utils/rate_limiter.py",
+    "utils/text.py",
+]
+
+
+@pytest.mark.parametrize("rel", COPIED)
 def test_copied_shell_equals_original(rel):
     assert _normalised("qdrant_tpu_torch", rel) == _normalised("qdrant_tpu", rel)
+
+
+# modules the port rewrote for torch (not copies), and empty package markers
+PORTED = {
+    "__init__.py", "__main__.py", "index/plain.py", "ops/distances.py",
+    "ops/quantization.py", "ops/scan.py", "storage/segment.py",
+    "storage/vectors.py", "utils/telemetry.py",
+}
+
+
+def test_every_shared_file_is_a_held_copy_or_a_port():
+    """A file at the same path in both packages is either held equal to its
+    original above or rewritten for torch; none is left unchecked."""
+    shared = []
+    base = os.path.join(ROOT, "qdrant_tpu_torch")
+    for dirpath, _, files in os.walk(base):
+        for f in files:
+            rel = os.path.relpath(os.path.join(dirpath, f), base)
+            if f.endswith((".py", ".cpp")) and os.path.exists(os.path.join(ROOT, "qdrant_tpu", rel)):
+                shared.append(rel)
+    markers = {r for r in shared if r.endswith("__init__.py") and r not in COPIED
+               and os.path.getsize(os.path.join(base, r)) == 0}
+    assert sorted(set(shared) - markers - PORTED) == sorted(COPIED)

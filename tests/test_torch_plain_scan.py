@@ -20,12 +20,13 @@ import torch
 from qdrant_tpu.index.plain import PlainIndex as JaxPlainIndex
 from qdrant_tpu.ops.scan import ScanIndex as JaxScanIndex
 from qdrant_tpu.storage.vectors import DenseVectorStore as JaxStore
-from qdrant_tpu.types import Distance
+from qdrant_tpu.types import Distance as JaxDistance
 from qdrant_tpu_torch.index.plain import SCAN_THRESHOLD, PlainIndex
 from qdrant_tpu_torch.ops import fused_scan as fs
 from qdrant_tpu_torch.ops.distances import preprocess_vectors
 from qdrant_tpu_torch.ops.scan import ScanIndex
 from qdrant_tpu_torch.storage.vectors import DenseVectorStore
+from qdrant_tpu_torch.types import Distance
 
 RTOL, ATOL = 1e-5, 1e-4
 
@@ -72,7 +73,8 @@ def _recall(ids, truth):
 
 
 def _stores(x, distance, deleted=()):
-    js, ts = JaxStore(x.shape[1], distance), DenseVectorStore(x.shape[1], distance)
+    js = JaxStore(x.shape[1], JaxDistance(distance.value))
+    ts = DenseVectorStore(x.shape[1], distance)
     js.add(x)
     ts.add(x)
     for off in deleted:

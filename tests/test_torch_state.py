@@ -27,6 +27,7 @@ from qdrant_tpu_torch.api.toc import TableOfContent
 from qdrant_tpu_torch.convert import scan_index_from_jax
 from qdrant_tpu_torch.ops.scan import ScanIndex
 from qdrant_tpu_torch.storage.segment import SearchParams
+from qdrant_tpu_torch.types import parse_filter as port_parse_filter
 
 NEVER = {"indexing_threshold": 10**9}
 
@@ -68,15 +69,15 @@ def test_jax_storage_opens_in_port(tmp_path, jax_pallas_interpret):
                 "payload": {"g": "1"}} for i in range(20)])
     jc.update_op({"type": "delete", "ids": list(range(0, 200, 5))})
     q = rng.standard_normal((5, d)).astype(np.float32)
-    flt = parse_filter({"must": [{"key": "g", "match": {"value": "1"}}]})
-    ref = [jc.search_dense("", q, 10), jc.search_dense("", q, 6, flt)]
+    flt_spec = {"must": [{"key": "g", "match": {"value": "1"}}]}
+    ref = [jc.search_dense("", q, 10), jc.search_dense("", q, 6, parse_filter(flt_spec))]
     counts = jc.count()
 
     toc = TableOfContent(str(tmp_path))
     c = toc.get_collection("c")
     assert c.count() == counts == n + 20 - 40
     _assert_same(c.search_dense("", q, 10), ref[0])
-    _assert_same(c.search_dense("", q, 6, flt), ref[1])
+    _assert_same(c.search_dense("", q, 6, port_parse_filter(flt_spec)), ref[1])
     toc.close()
     jtoc.close()
 
@@ -165,7 +166,7 @@ def test_jax_graph_files_stay_untouched(tmp_path, monkeypatch):
         {"vectors": {"size": 4, "distance": "Dot"}, "sparse_vectors": {"text": {}}},
         {"vectors": {"size": 4, "distance": "Dot",
                      "multivector_config": {"comparator": "max_sim"}}},
-        {"vectors": {"size": 4, "distance": "Dot",
+        {"vectors": {"size": 4, "distance": "Dot", "on_disk": True,
                      "quantization_config": {"scalar": {"type": "int8"}}}},
     ],
     ids=["sparse", "multivector", "quantization"],
