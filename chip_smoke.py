@@ -2,35 +2,49 @@
 """Smoke run of the PyTorch / CUDA port (qdrant_tpu_torch) on one GPU.
 
     python3 chip_smoke.py [--seed 0] [--phases build,kernel,rest,filtered,sq]
+    python3 chip_smoke.py --phases build,sweep     # tuning only, not run by default
 
 Phases, each printing its numbers on its own line:
 
-1. build     compile csrc/fused_scan.cu (both modes) with nvcc into
-             build/kernels/.
-2. kernel    the fused scan kernel against its plain PyTorch version on the
-             same inputs, CUDA-event times beside the plain version's and,
-             for reference, the product's alone (`product_ms`: bf16
-             `q @ v.T`, `torch._int_mm`). No single PyTorch call computes the
-             survivors (a product, a lane-group argmax and a slot-ring
-             merge), so the kernel table's `library_ms` is null.
+1. build     compile csrc/fused_scan.cu (the scan kernel in both modes and
+             the merge kernel) with nvcc into build/kernels/, printing
+             ptxas's registers and spills of each kernel (the kernel phase
+             prints each launch's shared memory).
+2. kernel    the fused scan (scan kernel, then the merge of its split walk)
+             against its plain PyTorch version on the same inputs. For each
+             shape: the launch (query rows per CTA, whether they stay
+             resident, chunks per slot, CTAs, shared memory, CTAs per SM),
+             `ms` (the call launched from Python, timed by CUDA events over
+             a loop: the yardstick of earlier runs), device times from a
+             replayed CUDA graph (`graph_ms` scan + merge, `scan_ms` the scan
+             kernel alone), achieved GB/s and ms / bound_ms on both, the
+             merge kernel's times held bit for bit against its plain version
+             on the scan's own partials,
+             the plain version's time and, for reference, the product's
+             alone (`product_ms`: bf16 `q @ v.T`, `torch._int_mm`). No single
+             PyTorch call computes the survivors (a product, a lane-group
+             argmax and a slot-ring merge) or the ordered merge, so the
+             kernel table's `library_ms` is null.
              bf16 mode: euclid at 256 queries x 1,000,000 x 128 (10% of
              rows deleted), dot at 256 x 100,000 x 1536, and the shapes the
              REST phases launch: 8 x 1,000,000 x 128 euclid and 8 x 100,000
-             x 100 (padded to 128) cosine with 10% of rows live. Survivor
+             x 100 (padded to 128) cosine with 10% of rows live; and 8 x
+             65,536 x 12,288 dot, rows too wide for resident queries. Survivor
              scores must agree within a worst-case f32 summation-order bound
              and ids must be equal wherever the class winner beats the
              runner-up by more than that bound.
              int8 mode (scalar-quantized codes, made on the card from
              --seed): 8 and 256 queries x 1,000,000 x 1536 dot on unit-vector
-             codes with 10% of rows deleted (8 is the sq phase's launch), and
-             8 x 1,000,000 x 128 euclid (bias -||v||^2, 2*scale^2). Survivor
-             scores and ids must be equal bit for bit.
+             codes with 10% of rows deleted (8 is the sq phase's launch),
+             8 x 1,000,000 x 128 euclid (bias -||v||^2, 2*scale^2), and 8 x
+             65,536 x 24,576 dot (streamed queries). Survivor scores and ids
+             must be equal bit for bit.
 3. rest      the port's REST server over a TableOfContent: 1,000,000 x 128
              euclid points made from --seed, bulk-ingested and sealed by the
              optimizer, 64 searches from 8 threads (coalesced by the
              micro-batcher); recall@10 >= 0.99 against a numpy brute force
-             that shares no code with the port, and the bf16 kernel's launch
-             count must rise.
+             that shares no code with the port, and the bf16 scan and the
+             merge kernels' launch counts must rise.
 4. filtered  100,000 x 100 cosine points with a keyword payload index
              matching 10% of them and `filter.must match` searches: every
              hit matches and recall@10 >= 0.99 against exact (a correctness
@@ -45,8 +59,13 @@ Phases, each printing its numbers on its own line:
              (`quantization.rescore: false`) with recall@10 >= 0.95 against
              a numpy brute force over int8 codes it encodes itself (survivor
              bin collisions are the only loss allowed; the recall against
-             exact cosine is printed beside it); the int8 kernel's launch
-             count must rise.
+             exact cosine is printed beside it); the int8 scan and the merge
+             kernels' launch counts must rise.
+6. sweep     (only when named) times the scan + merge as a replayed CUDA
+             graph for several chunk counts per slot, at the REST launches,
+             at B = 64 (one query tile) and B = 256 (four), and at a V small
+             enough (34 MB) to stay in L2; `cta_gbps` is the V bytes one CTA
+             takes in per ms. One JSON line per point, `sweep ...`.
 
 --profile DIR traces the rest and sq phases' search windows a second time
 with torch.profiler (device activity only; device busy and idle share from
@@ -75,6 +94,7 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 ALL_PHASES = ("build", "kernel", "rest", "filtered", "sq")
+EXTRA_PHASES = ("sweep",)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet)
 PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12}  # dense tensor-core peaks
 
@@ -103,6 +123,8 @@ def card_line() -> str:
 
 
 def _time_ms(fn, iters: int) -> float:
+    """CUDA-event ms per call of `fn` launched from Python (host overhead
+    included where it exceeds the device work)."""
     import torch
 
     fn()
@@ -115,6 +137,72 @@ def _time_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _graph_ms(fn, iters: int, reps: int = 5) -> float:
+    """Device ms per call of `fn`: `iters` calls captured in one CUDA graph
+    and replayed between two events, so no host time is counted; the median
+    of `reps` replays."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm: builds, occupancy and plan caches before the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    return float(np.median(times))
+
+
+def _split_numbers(fs, q, v, bias, blk, slots, scale_sq, bound):
+    """The redesigned scan's launch at this shape, its device times and the
+    merge kernel's, with the merge held bit for bit against its plain
+    version on the kernel's own partials → dict of numbers."""
+    import torch
+
+    plan = fs.scan_plan(q, v, blk, slots)
+    out = {"n_q": plan["n_q"], "resident_queries": plan["resident"],
+           "chunks": plan["chunks"], "ctas": plan["ctas"], "smem_bytes": plan["smem"],
+           "ctas_per_sm": plan["ctas_per_sm"]}
+    call = lambda: fs.fused_scan_survivors(q, v, bias, blk, slots, scale_sq)  # noqa: E731
+    out["ms"] = _time_ms(call, 20)  # scan + merge launched from Python
+    out["graph_ms"] = _graph_ms(call, 20)  # the same, device time only
+    out["scan_ms"] = _graph_ms(
+        lambda: fs.fused_scan_partials(q, v, bias, blk, slots, scale_sq), 20)
+    out["gbps"] = bound["bytes"] / out["ms"] / 1e6
+    out["ms_over_bound"] = out["ms"] / bound["bound_ms"]
+    out["graph_gbps"] = bound["bytes"] / out["graph_ms"] / 1e6
+    out["graph_ms_over_bound"] = out["graph_ms"] / bound["bound_ms"]
+    if plan["chunks"] > 1:
+        ps, pi = fs.fused_scan_partials(q, v, bias, blk, slots, scale_sq)
+        ks, ki = fs.merge_survivors(ps, pi)
+        rs, ri = fs.merge_survivors_plain(ps, pi)
+        torch.cuda.synchronize()
+        check(torch.equal(ks, rs) and torch.equal(ki, ri),
+              "merge kernel and plain merge differ")
+        mbytes = (ps.numel() + rs.numel()) * 8  # f32 + int32 in, out
+        out["merge"] = {
+            "ms": _time_ms(lambda: fs.merge_survivors(ps, pi), 50),
+            "graph_ms": _graph_ms(lambda: fs.merge_survivors(ps, pi), 50),
+            "plain_ms": _time_ms(lambda: fs.merge_survivors_plain(ps, pi), 5),
+            "bytes": mbytes, "bound_ms": mbytes / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes", "max_abs_err": float((ks - rs).abs().max()),
+        }
+    return out
 
 
 def compare_kernel(rng, b, n, d, euclid, deleted_frac, d_pad=None, blk=4096,
@@ -147,11 +235,13 @@ def compare_kernel(rng, b, n, d, euclid, deleted_frac, d_pad=None, blk=4096,
     q_bf[:, :d] = torch.from_numpy(q).to(dev)
     q_bf = q_bf.to(torch.bfloat16)
 
-    fs.fused_scan_survivors.launches = 0
+    fs.fused_scan_survivors.launches = fs.merge_survivors.launches = 0
     s_k, i_k = fs.fused_scan_survivors(q_bf, v_bf, bias, blk, slots)
     s_p, i_p = fs.fused_scan_survivors_plain(q_bf, v_bf, bias, blk, slots)
     torch.cuda.synchronize()
     check(fs.fused_scan_survivors.launches == 1, "kernel launch not counted")
+    split_walk = fs.scan_plan(q_bf, v_bf, blk, slots)["chunks"] > 1
+    check(fs.merge_survivors.launches == int(split_walk), "merge launch not counted")
 
     # worst-case f32 summation-order bound over d bf16 products, plus the
     # rounding of the bias add: both versions see the same bf16 operands
@@ -179,7 +269,8 @@ def compare_kernel(rng, b, n, d, euclid, deleted_frac, d_pad=None, blk=4096,
         alt = (qf[rows] * vf[pick]).sum(dim=1) + bias[pick]
         gap = float((s_p[diff] - alt).abs().max())
         check(gap <= tol, f"{n_diff} ids differ with a score gap {gap} > tol {tol}")
-    ms = _time_ms(lambda: fs.fused_scan_survivors(q_bf, v_bf, bias, blk, slots), 20)
+    bound = _bound(b, n_pad, d_pad, slots, 2, "bf16")
+    split = _split_numbers(fs, q_bf, v_bf, bias, blk, slots, None, bound)
     plain_ms = _time_ms(
         lambda: fs.fused_scan_survivors_plain(q_bf, v_bf, bias, blk, slots), 5
     )
@@ -190,9 +281,10 @@ def compare_kernel(rng, b, n, d, euclid, deleted_frac, d_pad=None, blk=4096,
         "shape": f"B={b} N={n} (padded {n_pad}) D={d} (padded {d_pad}) blk={blk} "
         f"slots={slots} {'euclid' if euclid else 'dot'} masked={deleted_frac}",
         "max_abs_err": max_err, "tol": tol, "ids_differing": n_diff,
-        "ms": ms, "plain_ms": plain_ms, "product_ms": product_ms,
-        "kernel_tflops": flop / ms / 1e9, "plain_tflops": flop / plain_ms / 1e9,
-        **_bound(b, n_pad, d_pad, slots, 2, "bf16"),
+        **split, "plain_ms": plain_ms, "product_ms": product_ms,
+        "kernel_tflops": flop / split["graph_ms"] / 1e9,
+        "plain_tflops": flop / plain_ms / 1e9,
+        **bound,
     }
 
 
@@ -250,17 +342,20 @@ def compare_kernel_int8(gen, b, n, d, euclid, deleted_frac, blk=4096, slots=16):
     bias[:n] = torch.where(live, -norms if euclid else torch.zeros_like(norms), fs.NEG_INF)
     scale_sq = float(np.float32((2.0 if euclid else 1.0) * scale * scale))
 
-    fs.fused_scan_survivors.launches_int8 = 0
+    fs.fused_scan_survivors.launches_int8 = fs.merge_survivors.launches = 0
     s_k, i_k = fs.fused_scan_survivors(q, v, bias, blk, slots, scale_sq)
     s_p, i_p = fs.fused_scan_survivors_plain(q, v, bias, blk, slots, scale_sq)
     torch.cuda.synchronize()
     check(fs.fused_scan_survivors.launches_int8 == 1, "int8 kernel launch not counted")
+    split_walk = fs.scan_plan(q, v, blk, slots)["chunks"] > 1
+    check(fs.merge_survivors.launches == int(split_walk), "merge launch not counted")
     n_ids = int((i_k != i_p).sum())
     both = (s_k > fs.NEG_INF / 2) & (s_p > fs.NEG_INF / 2)
     max_err = float((s_k - s_p).abs()[both].max()) if bool(both.any()) else 0.0
     check(n_ids == 0, f"int8 kernel and plain ids differ in {n_ids} survivors")
     check(bool(torch.equal(s_k, s_p)), f"int8 survivor scores differ (max {max_err})")
-    ms = _time_ms(lambda: fs.fused_scan_survivors(q, v, bias, blk, slots, scale_sq), 20)
+    bound = _bound(b, n_pad, d_pad, slots, 1, "int8")
+    split = _split_numbers(fs, q, v, bias, blk, slots, scale_sq, bound)
     plain_ms = _time_ms(
         lambda: fs.fused_scan_survivors_plain(q, v, bias, blk, slots, scale_sq), 5
     )
@@ -275,11 +370,59 @@ def compare_kernel_int8(gen, b, n, d, euclid, deleted_frac, blk=4096, slots=16):
         "shape": f"B={b} N={n} (padded {n_pad}) D={d} (padded {d_pad}) blk={blk} "
         f"slots={slots} {'euclid' if euclid else 'dot'} masked={deleted_frac} int8",
         "max_abs_err": max_err, "ids_differing": n_ids,
-        "ms": ms, "plain_ms": plain_ms, "product_ms": product_ms,
+        **split, "plain_ms": plain_ms, "product_ms": product_ms,
         "product_note": product_note,
-        "kernel_tops": ops / ms / 1e9, "plain_tops": ops / plain_ms / 1e9,
-        **_bound(b, n_pad, d_pad, slots, 1, "int8"),
+        "kernel_tops": ops / split["graph_ms"] / 1e9, "plain_tops": ops / plain_ms / 1e9,
+        **bound,
     }
+
+
+SWEEP_SHAPES = (
+    # name, B, rows, D, int8
+    ("rest_euclid_1m_128_b8", 8, 1_003_520, 128, False),
+    ("sq_cosine_1m_1536_b8", 8, 1_003_520, 1536, True),
+    ("filtered_cosine_100k_128_b8", 8, 102_400, 128, False),
+    ("euclid_1m_128_b64", 64, 1_003_520, 128, False),
+    ("sq_cosine_1m_1536_b64", 64, 1_003_520, 1536, True),
+    ("euclid_1m_128_b256", 256, 1_003_520, 128, False),
+    ("sq_cosine_1m_1536_b256", 256, 1_003_520, 1536, True),
+    ("euclid_131k_128_b256_in_l2", 256, 131_072, 128, False),
+)
+
+
+def sweep(gen, fs, card):
+    """The sweep phase: scan + merge device time per chunk count around the
+    chooser's pick (`chosen`). The inputs are random: the times depend on the
+    shapes, not on the values."""
+    import torch
+
+    blk, slots = fs.DEFAULT_BLK, fs.DEFAULT_SLOTS
+    for name, b, n, d, int8 in SWEEP_SHAPES:
+        if int8:
+            v = torch.randint(-127, 128, (n, d), generator=gen, device="cuda",
+                              dtype=torch.int8)
+            q = torch.randint(-127, 128, (b, d), generator=gen, device="cuda",
+                              dtype=torch.int8)
+        else:
+            v = torch.randn((n, d), generator=gen, device="cuda").to(torch.bfloat16)
+            q = torch.randn((b, d), generator=gen, device="cuda").to(torch.bfloat16)
+        bias = torch.zeros(n, device="cuda")
+        scale = 1e-4 if int8 else None
+        bound = _bound(b, n, d, slots, v.element_size(), "int8" if int8 else "bf16")
+        chosen = fs.scan_plan(q, v, blk, slots)["chunks"]
+        for chunks in sorted({1, max(1, chosen // 2), chosen, chosen * 2, chosen * 4}):
+            plan = fs.scan_plan(q, v, blk, slots, chunks)
+            ms = _graph_ms(lambda: fs.fused_scan_survivors(q, v, bias, blk, slots, scale,
+                                                           chunks=chunks), 10)
+            v_bytes = v.numel() * v.element_size()
+            print("sweep " + json.dumps({
+                "shape": name, **plan, "chosen": chunks == chosen, "graph_ms": ms,
+                "bound_ms": bound["bound_ms"], "ms_over_bound": ms / bound["bound_ms"],
+                "gbps": bound["bytes"] / ms / 1e6,
+                "cta_gbps": -(-b // plan["n_q"]) * v_bytes / plan["ctas"] / ms / 1e6,
+                "card": card}), flush=True)
+        del v, q, bias
+        torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -431,10 +574,12 @@ def run_rest(rng, storage, fs, n=1_000_000, d=128, n_queries=64, threads=8,
         check(any(c == n and not a for c, a in segs), f"optimizer did not seal: {segs}")
         q = rng.standard_normal((n_queries, d), dtype=np.float32)
         _concurrent_search(base, "sift1m", q[:1], 1, {"limit": 10})  # warm-up
-        fs.fused_scan_survivors.launches = 0
+        fs.fused_scan_survivors.launches = fs.merge_survivors.launches = 0
         hits, wall = _concurrent_search(base, "sift1m", q, threads, {"limit": 10})
         launches = fs.fused_scan_survivors.launches
+        merges = fs.merge_survivors.launches
         check(launches > 0, "the REST search never launched the fused scan kernel")
+        check(merges > 0, "the REST search never launched the merge kernel")
         truth = _exact_topk(x, q, 10, "euclid")
         recall = _recall(hits, truth, 10)
         check(all(len(h) == 10 for h in hits), "a search returned fewer than 10 hits")
@@ -461,7 +606,8 @@ def run_rest(rng, storage, fs, n=1_000_000, d=128, n_queries=64, threads=8,
             "points": n, "dim": d, "ingest_s": ingest_s, "optimize_s": optimize_s,
             "requests": n_queries, "threads": threads, "wall_s": wall,
             "qps": n_queries / wall, "recall_at_10": recall,
-            "score_rel_err": worst, "kernel_launches": launches, **prof,
+            "score_rel_err": worst, "kernel_launches": launches,
+            "merge_launches": merges, **prof,
         }
     finally:
         srv.shutdown()
@@ -489,13 +635,15 @@ def run_filtered(rng, storage, fs, n=100_000, d=100, n_queries=64, threads=8):
         toc.optimize_all()
         q = rng.standard_normal((n_queries, d), dtype=np.float32)
         flt = {"must": [{"key": "group", "match": {"value": "a"}}]}
-        fs.fused_scan_survivors.launches = 0
+        fs.fused_scan_survivors.launches = fs.merge_survivors.launches = 0
         hits, _ = _concurrent_search(
             base, "glove100", q, threads,
             {"limit": 10, "filter": flt, "with_payload": True},
         )
         launches = fs.fused_scan_survivors.launches
+        merges = fs.merge_survivors.launches
         check(launches > 0, "the filtered search never launched the fused scan kernel")
+        check(merges > 0, "the filtered search never launched the merge kernel")
         check(all(p["payload"]["group"] == "a" for h in hits for p in h),
               "a hit does not match the filter")
         sub = np.nonzero(member)[0]
@@ -505,7 +653,7 @@ def run_filtered(rng, storage, fs, n=100_000, d=100, n_queries=64, threads=8):
         return {
             "points": n, "dim": d, "matching": int(member.sum()),
             "requests": n_queries, "recall_at_10": recall,
-            "kernel_launches": launches,
+            "kernel_launches": launches, "merge_launches": merges,
         }
     finally:
         srv.shutdown()
@@ -550,10 +698,12 @@ def run_sq(rng, storage, fs, n=1_000_000, d=1536, n_queries=64, threads=8,
         t0 = time.perf_counter()
         _concurrent_search(base, "dbpedia", q[:1], 1, {"limit": 10})  # warm-up
         first_search_s = time.perf_counter() - t0
-        fs.fused_scan_survivors.launches_int8 = 0
+        fs.fused_scan_survivors.launches_int8 = fs.merge_survivors.launches = 0
         hits, wall = _concurrent_search(base, "dbpedia", q, threads, {"limit": 10})
         launches = fs.fused_scan_survivors.launches_int8
+        merges = fs.merge_survivors.launches
         check(launches > 0, "the SQ search never launched the int8 kernel")
+        check(merges > 0, "the SQ search never launched the merge kernel")
         truth, xn = _exact_cosine(x, q, 10)
         recall = _recall(hits, truth, 10)
         check(all(len(h) == 10 for h in hits), "an SQ search returned fewer than 10 hits")
@@ -568,11 +718,13 @@ def run_sq(rng, storage, fs, n=1_000_000, d=1536, n_queries=64, threads=8,
         check(worst <= 1e-4, f"returned cosines off by {worst} (relative)")
         check(recall >= 0.99, f"SQ recall@10 {recall} < 0.99")
         codes_body = {"limit": 10, "params": {"quantization": {"rescore": False}}}
-        fs.fused_scan_survivors.launches_int8 = 0
+        fs.fused_scan_survivors.launches_int8 = fs.merge_survivors.launches = 0
         c_hits, c_wall = _concurrent_search(base, "dbpedia", q[:n_codes_only], threads,
                                             codes_body)
         c_launches = fs.fused_scan_survivors.launches_int8
+        c_merges = fs.merge_survivors.launches
         check(c_launches > 0, "the codes-only search never launched the int8 kernel")
+        check(c_merges > 0, "the codes-only search never launched the merge kernel")
         check(all(len(h) == 10 and all(0 <= p["id"] < n for p in h) for h in c_hits),
               "a codes-only search returned an invalid id or fewer than 10 hits")
         c_truth = _exact_codes_topk(xn, qn[:n_codes_only], 10)
@@ -592,12 +744,13 @@ def run_sq(rng, storage, fs, n=1_000_000, d=1536, n_queries=64, threads=8,
             "optimize_s": optimize_s, "first_search_s": first_search_s,
             "requests": n_queries, "threads": threads, "wall_s": wall,
             "qps": n_queries / wall, "recall_at_10": recall, "score_rel_err": worst,
-            "int8_kernel_launches": launches,
+            "int8_kernel_launches": launches, "merge_launches": merges,
             "codes_only": {"requests": n_codes_only, "wall_s": c_wall,
                            "qps": n_codes_only / c_wall,
                            "recall_at_10_vs_codes": c_recall,
                            "recall_at_10_vs_exact": c_recall_exact,
-                           "int8_kernel_launches": c_launches},
+                           "int8_kernel_launches": c_launches,
+                           "merge_launches": c_merges},
             "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(), **prof,
         }
     finally:
@@ -647,7 +800,7 @@ def main() -> int:
                     help="trace one extra REST window with torch.profiler into DIR")
     args = ap.parse_args()
     phases = [p for p in args.phases.split(",") if p]
-    unknown = set(phases) - set(ALL_PHASES)
+    unknown = set(phases) - set(ALL_PHASES) - set(EXTRA_PHASES)
     if unknown:
         ap.error(f"unknown phases {sorted(unknown)}")
 
@@ -675,22 +828,33 @@ def main() -> int:
     gen.manual_seed(args.seed)
     rows = {
         mode: {
-            "name": f"fused_scan_survivors_{mode}", "route": "cuda",
+            "name": name, "route": "cuda",
             "source": "qdrant_tpu_torch/csrc/fused_scan.cu",
             "replaces": f"qdrant_tpu/ops/pallas_scan.py:{line}",
-            "library_ms": None,  # no single PyTorch call computes the survivors
+            # no single PyTorch call computes the survivors, nor the ordered
+            # merge (a max over chunks and a gather of its ids are two)
+            "library_ms": None, "launches": 0,
         }
-        for mode, line in (("bf16", 53), ("int8", 74))
+        for mode, name, line in (
+            ("bf16", "fused_scan_survivors_bf16", 53),
+            ("int8", "fused_scan_survivors_int8", 74),
+            # the slot-ring strict-'>' merge the TPU kernel carries across
+            # its sequential grid, here across the split walk's chunks
+            ("merge", "merge_survivors", 103),
+        )
     }
-    row_keys = ("ms", "plain_ms", "bound_ms", "bound_by")
+    # `ms` is the call launched from Python (the yardstick of earlier runs);
+    # `graph_ms` the same in a replayed CUDA graph, `scan_ms` the scan alone
+    row_keys = ("ms", "graph_ms", "scan_ms", "plain_ms", "bound_ms", "bound_by",
+                "chunks", "ctas")
 
-    if "build" in phases or "kernel" in phases:
+    if "build" in phases or "kernel" in phases or "sweep" in phases:
         t0 = time.perf_counter()
         so, log = fs.build_library(verbose=True)
         fs._lib()
         print(f"build: {time.perf_counter() - t0:.2f} s -> {os.path.relpath(so, ROOT)} ({card})")
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("Compiling entry", "registers", "spill")):
                 print(f"build: ptxas {line.strip()}")
     if "kernel" in phases:
         max_err = 0.0
@@ -702,12 +866,18 @@ def main() -> int:
             ("rest_euclid_1m_128_b8", dict(b=8, n=1_000_000, d=128, euclid=True, deleted_frac=0.0)),
             ("filtered_cosine_100k_100_b8",
              dict(b=8, n=100_000, d=100, d_pad=128, euclid=False, deleted_frac=0.9)),
+            # rows too wide for a resident query tile: the queries stream
+            ("wide_dot_65k_12288_b8",
+             dict(b=8, n=65_536, d=12_288, euclid=False, deleted_frac=0.1)),
         ):
             res = compare_kernel(rng, **kw)
             print(f"kernel {name}: {json.dumps(res)} ({card})", flush=True)
             max_err = max(max_err, res["max_abs_err"])
             if name == "rest_euclid_1m_128_b8":  # the main path's launch shape
                 rows["bf16"].update({k: res[k] for k in row_keys})
+                rows["merge"].update({k: res["merge"][k] for k in (
+                    "ms", "graph_ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")},
+                    shape=res["shape"], chunks=res["chunks"])
         rows["bf16"]["max_abs_err"] = max_err
         max_err = 0.0
         for name, kw in (
@@ -718,6 +888,9 @@ def main() -> int:
                                             deleted_frac=0.1)),
             ("sq_euclid_1m_128_b8", dict(b=8, n=1_000_000, d=128, euclid=True,
                                          deleted_frac=0.1)),
+            # rows too wide for a resident query tile: the queries stream
+            ("sq_wide_65k_24576_b8", dict(b=8, n=65_536, d=24_576, euclid=False,
+                                          deleted_frac=0.1)),
         ):
             res = compare_kernel_int8(gen, **kw)
             print(f"kernel {name}: {json.dumps(res)} ({card})", flush=True)
@@ -726,6 +899,8 @@ def main() -> int:
                 rows["int8"].update({k: res[k] for k in row_keys})
             torch.cuda.empty_cache()
         rows["int8"]["max_abs_err"] = max_err
+    if "sweep" in phases:
+        sweep(gen, fs, card)
     storage_root = os.path.join(ROOT, "build")
     os.makedirs(storage_root, exist_ok=True)
     if "rest" in phases:
@@ -735,7 +910,8 @@ def main() -> int:
         finally:
             shutil.rmtree(storage, ignore_errors=True)
         print(f"rest sift1m: {json.dumps(res)} ({card})", flush=True)
-        rows["bf16"]["launches"] = res["kernel_launches"]
+        rows["bf16"]["launches"] += res["kernel_launches"]
+        rows["merge"]["launches"] += res["merge_launches"]
     if "filtered" in phases:
         storage = tempfile.mkdtemp(prefix="smoke_filtered_", dir=storage_root)
         try:
@@ -743,6 +919,8 @@ def main() -> int:
         finally:
             shutil.rmtree(storage, ignore_errors=True)
         print(f"filtered glove100: {json.dumps(res)} ({card})", flush=True)
+        rows["bf16"]["launches"] += res["kernel_launches"]
+        rows["merge"]["launches"] += res["merge_launches"]
     if "sq" in phases:
         storage = tempfile.mkdtemp(prefix="smoke_sq_", dir=storage_root)
         try:
@@ -750,7 +928,9 @@ def main() -> int:
         finally:
             shutil.rmtree(storage, ignore_errors=True)
         print(f"sq dbpedia: {json.dumps(res)} ({card})", flush=True)
-        rows["int8"]["launches"] = res["int8_kernel_launches"]
+        codes_only = res["codes_only"]
+        rows["int8"]["launches"] += res["int8_kernel_launches"] + codes_only["int8_kernel_launches"]
+        rows["merge"]["launches"] += res["merge_launches"] + codes_only["merge_launches"]
     check("jax" not in sys.modules, "the port imported jax")
     reference = sorted(m for m in sys.modules if m.split(".")[0] == "qdrant_tpu")
     check(not reference, f"the port imported the JAX package: {reference}")

@@ -1,8 +1,9 @@
 """Process entry point: `python -m qdrant_tpu_torch --storage-dir ... --http-port ...`.
 
 Loads settings, opens the storage root (TableOfContent) and serves the REST
-API on the CUDA device (the CPU when no card is present, or with
-`--force-cpu`). gRPC and cluster mode are not ported yet: `--uri` and
+API on the CUDA device. Without a card it refuses to start unless the CPU
+was asked for (`--force-cpu` or QDRANT_TPU_FORCE_CPU=1); then the kernels'
+plain versions run. gRPC and cluster mode are not ported yet: `--uri` and
 `--bootstrap` are refused. Ctrl-C flushes all collections before exit.
 """
 
@@ -39,8 +40,12 @@ def main(argv=None) -> int:
 
     from .device import default_device, force_cpu
 
-    if args.force_cpu or os.environ.get("QDRANT_TPU_FORCE_CPU"):
+    if args.force_cpu:
         force_cpu()
+    try:  # no card and no request for the CPU: refuse to start
+        device = default_device()
+    except RuntimeError as exc:
+        parser.error(str(exc))
 
     if args.config_path:
         os.environ["QDRANT_CONFIG_PATH"] = args.config_path
@@ -137,7 +142,7 @@ def main(argv=None) -> int:
         log.info("anonymized telemetry reporting enabled (hourly)")
     log.info(
         "qdrant-tpu-torch listening on http://%s:%d (storage: %s, device: %s)",
-        host, server.port, storage_path, default_device(),
+        host, server.port, storage_path, device,
     )
 
     def shutdown(signum, frame):

@@ -1,24 +1,35 @@
 """Device selection for the port (counterpart of the TPU probe
 qdrant_tpu/ops/pallas_scan.py::is_tpu_backend).
 
-The engine runs on `cuda` whenever a card is present; the CPU is used only
-when none is, or when the process asked for it explicitly (`--force-cpu`).
+The engine runs on `cuda`. The CPU is used only when the process asks for
+it: `--force-cpu`, `force_cpu()`, or a non-empty `QDRANT_TPU_FORCE_CPU`
+other than "0". Without a card and without that request `default_device()`
+raises, so a machine whose CUDA stack failed to load never serves silently on
+the CPU with the kernels' plain versions.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import torch
+
+FORCE_CPU_ENV = "QDRANT_TPU_FORCE_CPU"
 
 _FORCED: Optional[torch.device] = None
 
 
 def default_device() -> torch.device:
     """The device every store, index and kernel launch of the port uses."""
-    if _FORCED is not None:
-        return _FORCED
-    return torch.device("cuda") if torch.cuda.is_available() else torch.device("cpu")
+    if _FORCED is not None or os.environ.get(FORCE_CPU_ENV, "") not in ("", "0"):
+        return torch.device("cpu")
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "qdrant_tpu_torch found no CUDA device; pass --force-cpu or set "
+            f"{FORCE_CPU_ENV}=1 to run on the CPU with the kernels' plain versions"
+        )
+    return torch.device("cuda")
 
 
 def tensor_bytes(*tensors: Optional[torch.Tensor]) -> int:

@@ -1,5 +1,6 @@
-"""The hand-written fused scan kernel on the card against its plain PyTorch
-version (the CPU has no CUDA kernel to run: these tests skip there).
+"""The hand-written fused scan kernels on the card (the scan, in both modes,
+and the merge of its split walk) against their plain PyTorch versions (the
+CPU has no CUDA kernel to run: these tests skip there).
 
 Run on a GPU machine:  python -m pytest tests/test_torch_cuda.py -m cuda -q
 
@@ -27,6 +28,12 @@ def cuda():
     return torch.device("cuda")
 
 
+def _bf16_tol(q, v, bias, d):
+    qn, vn = float(q.float().norm(dim=1).max()), float(v.float().norm(dim=1).max())
+    smax = float(bias[bias > fs.NEG_INF / 2].abs().max()) + qn * vn
+    return d * 2.0 ** -23 * qn * vn + 2 * float(np.spacing(np.float32(smax)))
+
+
 def _inputs(dev, b, n_pad, d, euclid, seed=0):
     rng = np.random.default_rng(seed)
     v = rng.standard_normal((n_pad, d)).astype(np.float32)
@@ -47,6 +54,9 @@ def _inputs(dev, b, n_pad, d, euclid, seed=0):
         (37, 65536, 64, 4096, 16, True),
         (256, 131072, 1536, 4096, 16, False),
         (64, 4096 * 3, 128, 4096, 16, True),  # more slots than blocks
+        # rows too wide for a resident query tile: the queries stream
+        (5, 8192, 12288, 1024, 4, False),
+        (37, 8192, 12288, 2048, 8, True),
     ],
 )
 def test_kernel_matches_plain(cuda, b, n_pad, d, blk, slots, euclid):
@@ -89,6 +99,10 @@ def test_kernel_rejects_mixed_devices(cuda):
         (37, 65536, 1536, 4096, 16, False),
         (8, 4096 * 3, 128, 4096, 16, False),  # more slots than blocks
         (64, 65536, 1536, 2048, 16, True),
+        (8, 8192, 12288, 1024, 4, False),  # the widest resident query tile
+        # rows too wide for a resident query tile: the queries stream
+        (5, 8192, 24576, 1024, 4, False),
+        (64, 8192, 24576, 2048, 8, True),
     ],
 )
 def test_int8_kernel_matches_plain_bit_exact(cuda, b, n_pad, d, blk, slots, euclid):
@@ -105,6 +119,7 @@ def test_int8_kernel_matches_plain_bit_exact(cuda, b, n_pad, d, blk, slots, eucl
     ps, pi = fs.fused_scan_survivors_plain(q, v, bias, blk, slots, scale_sq)
     torch.cuda.synchronize()
     assert fs.fused_scan_survivors.launches_int8 == before + 1
+    assert fs.scan_plan(q, v, blk, slots)["resident"] == int(d <= 12288)
     assert torch.equal(ki, pi)
     assert torch.equal(ks, ps)
 
@@ -114,3 +129,77 @@ def test_int8_kernel_rejects_width_not_multiple_of_64(cuda):
     v = torch.zeros((4096, 96), dtype=torch.int8, device=cuda)
     with pytest.raises(ValueError):
         fs.fused_scan_survivors(q, v, torch.zeros(4096, device=cuda), 128, 4, 1.0)
+
+
+def _small_codes(dev, b, n_pad, d, euclid, seed=1):
+    rng = np.random.default_rng(seed)
+    # small codes: integer scores tie often, and the earliest row must win
+    v = torch.from_numpy(rng.integers(-8, 9, (n_pad, d)).astype(np.int8)).to(dev)
+    q = torch.from_numpy(rng.integers(-8, 9, (b, d)).astype(np.int8)).to(dev)
+    dead = rng.random(n_pad) < 0.1
+    live = -rng.integers(0, 8, n_pad).astype(np.float32) if euclid else 0.0
+    bias = torch.from_numpy(np.where(dead, fs.NEG_INF, live).astype(np.float32)).to(dev)
+    return q, v, bias, float(np.float32((2.0 if euclid else 1.0) * 0.0123 ** 2))
+
+
+# forced cuts of each slot's walk: none, a few, the chooser's, and more chunks
+# than a slot has tiles (slot 0 walks 64 tiles here, slot 1 32)
+CHUNKS = [1, 2, 7, None, 1000]
+
+
+@pytest.mark.parametrize("chunks", CHUNKS)
+def test_int8_split_walk_matches_plain_bit_exact(cuda, chunks):
+    q, v, bias, scale_sq = _small_codes(cuda, 5, 4096 * 3, 128, False)
+    ps, pi = fs.fused_scan_survivors_plain(q, v, bias, 4096, 2, scale_sq)
+    before = fs.merge_survivors.launches
+    ks, ki = fs.fused_scan_survivors(q, v, bias, 4096, 2, scale_sq, chunks=chunks)
+    torch.cuda.synchronize()
+    split = fs.scan_plan(q, v, 4096, 2, chunks)["chunks"] > 1
+    assert fs.merge_survivors.launches == before + int(split)
+    assert torch.equal(ki, pi)
+    assert torch.equal(ks, ps)
+
+
+@pytest.mark.parametrize("chunks", CHUNKS)
+def test_bf16_split_walk_matches_plain(cuda, chunks):
+    q, v, bias = _inputs(cuda, 37, 4096 * 3, 128, True)
+    ps, pi = fs.fused_scan_survivors_plain(q, v, bias, 4096, 2)
+    ks, ki = fs.fused_scan_survivors(q, v, bias, 4096, 2, chunks=chunks)
+    torch.cuda.synchronize()
+    tol = _bf16_tol(q, v, bias, 128)
+    empty = ps <= fs.NEG_INF / 2
+    assert torch.equal(ks <= fs.NEG_INF / 2, empty)
+    assert torch.equal(ki[empty], pi[empty])
+    assert float((ks - ps).abs()[~empty].max()) <= tol
+    diff = (ki != pi) & ~empty
+    if diff.any():
+        rows = diff.nonzero()[:, 0]
+        alt = (q.float()[rows] * v.float()[ki[diff].long()]).sum(1) + bias[ki[diff].long()]
+        assert float((ps[diff] - alt).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("chunks,d", [(2, 128), (7, 128), (1000, 128), (7, 24576)])
+def test_partials_match_plain_partials(cuda, chunks, d):
+    """The scan kernel's own scratch, chunk by chunk, against the plain
+    survivors over each chunk's rows alone (D = 24,576: streamed queries)."""
+    q, v, bias, scale_sq = _small_codes(cuda, 8, 4096 * 3, d, True)
+    ks, ki = fs.fused_scan_partials(q, v, bias, 4096, 2, scale_sq, chunks)
+    ps, pi = fs.fused_scan_partials_plain(q, v, bias, 4096, 2, scale_sq, chunks)
+    torch.cuda.synchronize()
+    assert torch.equal(ki, pi)
+    assert torch.equal(ks, ps)
+
+
+def test_merge_kernel_matches_plain(cuda):
+    rng = np.random.default_rng(2)
+    s = rng.integers(-3, 3, (9, 13, 512)).astype(np.float32)  # ties everywhere
+    s[rng.random(s.shape) < 0.2] = fs.NEG_INF
+    ids = rng.integers(0, 1 << 20, s.shape).astype(np.int32)
+    ids[s == fs.NEG_INF] = -1
+    part_s, part_i = torch.from_numpy(s).to(cuda), torch.from_numpy(ids).to(cuda)
+    before = fs.merge_survivors.launches
+    ks, ki = fs.merge_survivors(part_s, part_i)
+    ps, pi = fs.merge_survivors_plain(part_s, part_i)
+    torch.cuda.synchronize()
+    assert fs.merge_survivors.launches == before + 1
+    assert torch.equal(ks, ps) and torch.equal(ki, pi)

@@ -15,6 +15,9 @@ from qdrant_tpu.ops import distances as jd
 from qdrant_tpu.types import Distance
 from qdrant_tpu_torch.ops import distances as td
 from qdrant_tpu_torch.types import Distance as PortDistance
+from qdrant_tpu_torch.device import force_cpu
+
+force_cpu()  # the port on the CPU, with the kernels' plain versions
 
 DISTANCES = [d.value for d in Distance]
 RTOL, ATOL = 1e-5, 1e-4

@@ -25,6 +25,9 @@ import torch
 
 from qdrant_tpu.ops.pallas_scan import NEG_INF, pallas_scan_rescore, pallas_scan_survivors
 from qdrant_tpu_torch.ops import fused_scan as fs
+from qdrant_tpu_torch.device import force_cpu
+
+force_cpu()  # the port on the CPU, with the kernels' plain versions
 
 RTOL, ATOL = 1e-5, 1e-4
 

@@ -68,7 +68,7 @@ print(json.dumps({"attempts": attempts,
 
 
 def test_port_runs_with_jax_blocked():
-    env = {**os.environ, "PYTHONPATH": ROOT}
+    env = {**os.environ, "PYTHONPATH": ROOT, "QDRANT_TPU_FORCE_CPU": "1"}
     proc = subprocess.run(
         [sys.executable, "-c", _SUBPROCESS], capture_output=True, text=True,
         env=env, cwd=ROOT, timeout=300,
@@ -208,3 +208,35 @@ def test_every_shared_file_is_a_held_copy_or_a_port():
     markers = {r for r in shared if r.endswith("__init__.py") and r not in COPIED
                and os.path.getsize(os.path.join(base, r)) == 0}
     assert sorted(set(shared) - markers - PORTED) == sorted(COPIED)
+
+
+def test_default_device_refuses_silent_cpu(monkeypatch):
+    """Without a card the port raises unless the CPU was asked for, by
+    force_cpu() or QDRANT_TPU_FORCE_CPU (not "0")."""
+    from qdrant_tpu_torch import device
+
+    monkeypatch.setattr(device, "_FORCED", None)  # undo this process's force_cpu()
+    monkeypatch.delenv(device.FORCE_CPU_ENV, raising=False)
+    monkeypatch.setattr(device.torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="--force-cpu"):
+        device.default_device()
+    monkeypatch.setenv(device.FORCE_CPU_ENV, "0")
+    with pytest.raises(RuntimeError, match=device.FORCE_CPU_ENV):
+        device.default_device()
+    monkeypatch.setenv(device.FORCE_CPU_ENV, "1")
+    assert device.default_device().type == "cpu"
+    monkeypatch.delenv(device.FORCE_CPU_ENV)
+    device.force_cpu()
+    assert device.default_device().type == "cpu"
+
+
+def test_server_without_card_refuses_to_start(tmp_path):
+    env = {k: v for k, v in os.environ.items() if k != "QDRANT_TPU_FORCE_CPU"}
+    env.update(PYTHONPATH=ROOT, CUDA_VISIBLE_DEVICES="", QDRANT__TELEMETRY_DISABLED="true")
+    proc = subprocess.run(
+        [sys.executable, "-m", "qdrant_tpu_torch", "--storage-dir", str(tmp_path),
+         "--http-port", "0"],
+        capture_output=True, text=True, env=env, cwd=ROOT, timeout=300,
+    )
+    assert proc.returncode == 2, proc.stderr[-2000:]
+    assert "--force-cpu" in proc.stderr

@@ -27,6 +27,9 @@ from qdrant_tpu_torch.ops.distances import preprocess_vectors
 from qdrant_tpu_torch.ops.scan import ScanIndex
 from qdrant_tpu_torch.storage.vectors import DenseVectorStore
 from qdrant_tpu_torch.types import Distance
+from qdrant_tpu_torch.device import force_cpu
+
+force_cpu()  # the port on the CPU, with the kernels' plain versions
 
 RTOL, ATOL = 1e-5, 1e-4
 

@@ -44,6 +44,9 @@ from qdrant_tpu_torch.ops import fused_scan as fs
 from qdrant_tpu_torch.ops import quantization as tq
 from qdrant_tpu_torch.storage.segment import SearchParams, Segment
 from qdrant_tpu_torch.types import CollectionParams, Distance, parse_filter
+from qdrant_tpu_torch.device import force_cpu
+
+force_cpu()  # the port on the CPU, with the kernels' plain versions
 
 EPS = 2.0 ** -23
 DISTANCES = ["Dot", "Cosine", "Euclid", "Manhattan"]

@@ -22,6 +22,9 @@ from qdrant_tpu.api.rest import RestServer as JaxRestServer
 from qdrant_tpu.api.toc import TableOfContent as JaxToc
 from qdrant_tpu_torch.api.rest import RestServer
 from qdrant_tpu_torch.api.toc import TableOfContent
+from qdrant_tpu_torch.device import force_cpu
+
+force_cpu()  # the port on the CPU, with the kernels' plain versions
 
 N, D = 65536, 32
 NEVER = {"indexing_threshold": 10**9}  # keep both engines on the exact path

@@ -28,6 +28,9 @@ from qdrant_tpu_torch.convert import scan_index_from_jax
 from qdrant_tpu_torch.ops.scan import ScanIndex
 from qdrant_tpu_torch.storage.segment import SearchParams
 from qdrant_tpu_torch.types import parse_filter as port_parse_filter
+from qdrant_tpu_torch.device import force_cpu
+
+force_cpu()  # the port on the CPU, with the kernels' plain versions
 
 NEVER = {"indexing_threshold": 10**9}
 
