@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch / CUDA port (qdrant_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py [--seed 0] [--phases build,kernel,rest,filtered,sq]
+    python3 chip_smoke.py [--seed 0] [--phases build,kernel,rest,filtered,sq,tier,sparse]
     python3 chip_smoke.py --phases build,sweep     # tuning only, not run by default
 
 Phases, each printing its numbers on its own line:
@@ -27,15 +27,18 @@ Phases, each printing its numbers on its own line:
              kernel table's `library_ms` is null.
              bf16 mode: euclid at 256 queries x 1,000,000 x 128 (10% of
              rows deleted), dot at 256 x 100,000 x 1536, and the shapes the
-             REST phases launch: 8 x 1,000,000 x 128 euclid and 8 x 100,000
-             x 100 (padded to 128) cosine with 10% of rows live; and 8 x
-             65,536 x 12,288 dot, rows too wide for resident queries. Survivor
+             REST phases launch: 8 x 1,000,000 x 128 euclid (rest), 8 x
+             100,000 x 100 (padded to 128) cosine with 10% of rows live
+             (filtered) and 8 x --sparse-rows x 128 euclid (the RRF queries'
+             dense prefetch; at 1,000,000 rows it is the rest launch and is
+             compared once); and 8 x 65,536 x 12,288 dot, rows too wide for resident queries. Survivor
              scores must agree within a worst-case f32 summation-order bound
              and ids must be equal wherever the class winner beats the
              runner-up by more than that bound.
              int8 mode (scalar-quantized codes, made on the card from
              --seed): 8 and 256 queries x 1,000,000 x 1536 dot on unit-vector
-             codes with 10% of rows deleted (8 is the sq phase's launch),
+             codes with 10% of rows deleted, 8 x 262,144 x 1536 (the sq
+             phase's launch),
              8 x 1,000,000 x 128 euclid (bias -||v||^2, 2*scale^2), and 8 x
              65,536 x 24,576 dot (streamed queries). Survivor scores and ids
              must be equal bit for bit.
@@ -50,9 +53,11 @@ Phases, each printing its numbers on its own line:
              hit matches and recall@10 >= 0.99 against exact (a correctness
              check; it reports no throughput).
 5. sq        Qdrant's scalar-quantization deployment at its benchmark's
-             shape (dbpedia-openai-1M-1536-angular: 1,000,000 x 1536 cosine,
-             random vectors from --seed; `{"scalar": {"type": "int8",
-             "quantile": 0.99, "always_ram": true}}`): sealed by the
+             width (dbpedia-openai-1M-1536-angular: 1536-d cosine, random
+             vectors from --seed, 262,144 of its 1,000,000 rows so that the
+             seven phases keep inside the script's time;
+             `{"scalar": {"type": "int8", "quantile": 0.99, "always_ram":
+             true}}`): sealed by the
              optimizer into int8 codes, 64 default (rescored) searches from 8
              threads with recall@10 >= 0.99 and scores equal to the exact
              cosine within 1e-4 relative, then 16 codes-only searches
@@ -61,7 +66,38 @@ Phases, each printing its numbers on its own line:
              bin collisions are the only loss allowed; the recall against
              exact cosine is printed beside it); the int8 scan and the merge
              kernels' launch counts must rise.
-6. sweep     (only when named) times the scan + merge as a replayed CUDA
+6. tier      the quantized-primary tier (Qdrant docs, Quantization ->
+             "Quantized vectors in RAM, original on disk"): 1,000,000 x 1536
+             cosine with `on_disk: true` and the sq phase's scalar config.
+             The sealed segment must hold int8 codes on the card and no f32
+             block (peak `torch.cuda.max_memory_allocated` under 3 GB, the
+             rows in a memmap under the storage directory); 64 default
+             searches from 8 threads with recall@10 >= 0.99 against exact
+             cosine and scores within 1e-4 relative, then 16 codes-only
+             searches with recall@10 >= 0.95 against the brute force over
+             the same codes; no fused-scan kernel may launch (this tier is
+             the torch block scan, as in the JAX engine). Then TurboQuant as
+             the primary store: the first 262,144 rows with
+             `{"turbo": {"bits": "bits4"}}` and `on_disk: true` -> packed
+             4-bit codes on the card, rescored recall@10 >= 0.99, codes-only
+             recall recorded. Each search window is traced once more with
+             torch.profiler for its device idle share and top device ops.
+7. sparse    SPLADE-like sparse vectors (vocabulary 30,000, term frequency
+             ~ rank^-0.9, Poisson(64) terms per document, weights |N(1, 0.6)|
+             + 0.05; queries Poisson(48) terms) beside a 128-d euclid dense
+             vector, 1,000,000 points (--sparse-rows for a shorter run),
+             loaded through the collection's upsert and sealed. The index must be
+             on its hybrid path; 64 `points/query` requests from 8 threads
+             with recall@10 >= 0.95 against one scipy CSR product and every
+             score within 1e-4 relative of that product's value (a document
+             with more cold terms than the forward rows' width Jc is held to
+             the product over its hot and its Jc heaviest cold terms, and
+             such rows are counted); 16 with a keyword
+             filter matching 10% -> every hit matches; then 64 RRF requests
+             (dense + sparse prefetch of 30 each) with recall against RRF
+             (k = 60) of the two exact rankings recorded, and the bf16 scan
+             kernel's launch count must rise by the dense prefetches.
+8. sweep     (only when named) times the scan + merge as a replayed CUDA
              graph for several chunk counts per slot, at the REST launches,
              at B = 64 (one query tile) and B = 256 (four), and at a V small
              enough (34 MB) to stay in L2; `cta_gbps` is the V bytes one CTA
@@ -69,9 +105,14 @@ Phases, each printing its numbers on its own line:
 
 --profile DIR traces the rest and sq phases' search windows a second time
 with torch.profiler (device activity only; device busy and idle share from
-each window, traces in DIR) and times the host steps under one rest search.
+each window, traces in DIR) and times the host steps under one rest search;
+the tier and sparse phases trace their windows in any case and write the
+traces only with --profile.
 
-Before the last line it prints the kernel table as JSON; the last line is
+Before the last line it prints the kernel table as JSON: each row's numbers
+are those at the rest (bf16, merge) or sq (int8) launch, `launches` sums the
+main-path phases, and `by_phase` gives each phase's own launches beside the
+kernel's numbers at that phase's launch shape. The last line is
 {"ok": true, "device": {...}}. Any failed check raises (including jax or
 the qdrant_tpu package having been imported), so the script exits non-zero
 and prints no result; it refuses to run without CUDA.
@@ -93,10 +134,13 @@ import urllib.request
 import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-ALL_PHASES = ("build", "kernel", "rest", "filtered", "sq")
+ALL_PHASES = ("build", "kernel", "rest", "filtered", "sq", "tier", "sparse")
 EXTRA_PHASES = ("sweep",)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet)
 PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12}  # dense tensor-core peaks
+# rows of the sq phase: its benchmark has 1,000,000, which the phase served
+# until the tier and sparse phases came; a quarter keeps the script's time
+SQ_ROWS = 262_144
 
 
 class SmokeError(RuntimeError):
@@ -445,20 +489,25 @@ def _call(base: str, method: str, path: str, body=None):
 def _concurrent_search(base, coll, queries, threads, body_extra):
     """POST one points/search per query from `threads` threads → (hits per
     query, wall seconds)."""
-    results = [None] * len(queries)
+    return _concurrent_post(
+        base, f"/collections/{coll}/points/search",
+        [{"vector": q.tolist(), **body_extra} for q in queries], threads)
+
+
+def _concurrent_post(base, path, bodies, threads):
+    """POST each body to `path` from `threads` threads → (result per body,
+    wall seconds)."""
+    results = [None] * len(bodies)
     errors = []
 
     def worker(idx):
         try:
             for i in idx:
-                results[i] = _call(
-                    base, "POST", f"/collections/{coll}/points/search",
-                    {"vector": queries[i].tolist(), **body_extra},
-                )
+                results[i] = _call(base, "POST", path, bodies[i])
         except Exception as exc:  # re-raised on the main thread below
             errors.append(exc)
 
-    parts = [list(range(t, len(queries), threads)) for t in range(threads)]
+    parts = [list(range(t, len(bodies), threads)) for t in range(threads)]
     ts = [threading.Thread(target=worker, args=(p,)) for p in parts]
     t0 = time.perf_counter()
     for t in ts:
@@ -493,16 +542,17 @@ def _profile_window(fn, out_dir, name):
     """Run fn under torch.profiler, tracing device activity only (no host
     op spans, which would stretch the window) → (device-busy ms, wall ms of
     the same window, top kernels); the chrome trace goes to
-    out_dir/<name>_window_trace.json."""
+    out_dir/<name>_window_trace.json when out_dir is given."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    os.makedirs(out_dir, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(out_dir, f"{name}_window_trace.json"))
-    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+    if out_dir:
+        os.makedirs(out_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(out_dir, f"{name}_window_trace.json"))
+    rows = [(e.key[:96], e.self_device_time_total / 1e3, e.count)  # names run long
             for e in prof.key_averages() if e.self_device_time_total > 0]
     rows.sort(key=lambda r: -r[1])
     return sum(r[1] for r in rows), wall_ms, rows[:8]
@@ -660,9 +710,9 @@ def run_filtered(rng, storage, fs, n=100_000, d=100, n_queries=64, threads=8):
         toc.close()
 
 
-def run_sq(rng, storage, fs, n=1_000_000, d=1536, n_queries=64, threads=8,
+def run_sq(rng, storage, fs, n=SQ_ROWS, d=1536, n_queries=64, threads=8,
            n_codes_only=16, profile_dir=None):
-    """The sq phase: Qdrant's scalar-quantization config on a 1M x 1536
+    """The sq phase: Qdrant's scalar-quantization config on an n x 1536
     cosine collection, served through REST."""
     import torch
 
@@ -758,6 +808,344 @@ def run_sq(rng, storage, fs, n=1_000_000, d=1536, n_queries=64, threads=8,
         toc.close()
 
 
+def _traced_window(fn, profile_dir, name):
+    """The window `fn` once more under torch.profiler → its device busy
+    time, idle share and top device ops. A profiler failure, or a window in
+    which nothing ran on the device, fails the phase."""
+    busy, traced_ms, top = _profile_window(fn, profile_dir, name)
+    check(busy > 0 and top, f"the traced {name} window shows no device time")
+    return {"traced_wall_ms": traced_ms, "device_busy_ms": busy,
+            "device_idle_share": 1 - busy / traced_ms,
+            "top_device_ops_ms": [[k, t, c] for k, t, c in top]}
+
+
+def _cosine_score_err(hits, xn, qn):
+    """Worst relative gap between returned scores and the exact cosine of
+    the returned ids."""
+    worst = 0.0
+    for qi, h in enumerate(hits):
+        ids = np.array([p["id"] for p in h])
+        ref = xn[ids] @ qn[qi]
+        got = np.array([p["score"] for p in h])
+        check(np.all(np.isfinite(got)), "non-finite score")
+        worst = max(worst, float(np.abs(got - ref).max() / np.abs(ref).max()))
+    return worst
+
+
+def _serve_tier(base, toc, fs, name, quant, kind, x, q, truth, xn, threads,
+                n_codes_only, profile_dir):
+    """One quantized-primary collection (`on_disk` rows, `quant` codes):
+    create, bulk-ingest, seal, check what lives on the card, search through
+    REST → dict of numbers. `kind` is "sq" or "tq"."""
+    import gc
+
+    import torch
+
+    n, d = x.shape
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    _call(base, "PUT", f"/collections/{name}",
+          {"vectors": {"size": d, "distance": "Cosine", "on_disk": True,
+                       "quantization_config": quant}})
+    coll = toc.get_collection(name)
+    t0 = time.perf_counter()
+    coll.bulk_ingest(list(range(n)), {"": x})
+    ingest_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    toc.optimize_all()
+    optimize_s = time.perf_counter() - t0
+    sealed = [s for s in coll.shards[0].segments if not s.appendable and len(s) == n]
+    check(bool(sealed) and "" in sealed[0].quantized,
+          f"the optimizer did not seal {kind} codes: "
+          f"{[(len(s), s.appendable, list(s.quantized)) for s in coll.shards[0].segments]}")
+    store, codes = sealed[0].dense[""], sealed[0].quantized[""]
+    check(store.on_disk and isinstance(store._data, np.memmap),
+          "the tier's f32 rows are not in a disk memmap")
+    memmap_path = os.path.abspath(store._data.filename)
+    check(memmap_path.startswith(os.path.abspath(ROOT) + os.sep),
+          f"the tier's memmap lies outside the checkout: {memmap_path}")
+    dev_codes = codes._scan_dev[0] if kind == "sq" else codes._flat_dev[0]
+    check(dev_codes is not None and dev_codes.is_cuda, "the seal left no codes on the card")
+    codes_bytes = dev_codes.numel() * dev_codes.element_size()
+
+    def no_f32_block():
+        check(store._dev is None and store._scan is None,
+              "the tier uploaded the f32 block or a bf16 scan block")
+        check(codes._dev is None and getattr(codes, "_kernel_dev", None) is None,
+              "the tier uploaded a second copy of the codes")
+
+    no_f32_block()
+    t0 = time.perf_counter()
+    _concurrent_search(base, name, q[:1], 1, {"limit": 10})  # warm-up
+    first_search_s = time.perf_counter() - t0
+    fs.fused_scan_survivors.launches = fs.fused_scan_survivors.launches_int8 = 0
+    hits, wall = _concurrent_search(base, name, q, threads, {"limit": 10})
+    check(all(len(h) == 10 for h in hits), f"a {kind} tier search returned fewer than 10 hits")
+    recall = _recall(hits, truth, 10)
+    qn = q / np.linalg.norm(q, axis=1, keepdims=True)
+    worst = _cosine_score_err(hits, xn, qn)
+    check(worst <= 1e-4, f"{kind} tier: returned cosines off by {worst} (relative)")
+    check(recall >= 0.99, f"{kind} tier recall@10 {recall} < 0.99")
+    codes_body = {"limit": 10, "params": {"quantization": {"rescore": False}}}
+    c_hits, c_wall = _concurrent_search(base, name, q[:n_codes_only], threads, codes_body)
+    check(all(len(h) == 10 and all(0 <= p["id"] < n for p in h) for h in c_hits),
+          f"a {kind} codes-only search returned an invalid id or fewer than 10 hits")
+    codes_only = {"requests": n_codes_only, "wall_s": c_wall, "qps": n_codes_only / c_wall,
+                  "recall_at_10_vs_exact": _recall(c_hits, truth[:n_codes_only], 10)}
+    if kind == "sq":
+        c_truth = _exact_codes_topk(xn, qn[:n_codes_only], 10)
+        codes_only["recall_at_10_vs_codes"] = _recall(c_hits, c_truth, 10)
+        check(codes_only["recall_at_10_vs_codes"] >= 0.95,
+              f"tier codes-only recall@10 {codes_only['recall_at_10_vs_codes']} < 0.95 "
+              "(vs the codes)")
+    check(fs.fused_scan_survivors.launches_int8 == 0 and fs.fused_scan_survivors.launches == 0,
+          "a tier search launched the fused scan kernel (this tier is the torch scan)")
+    no_f32_block()
+    peak = torch.cuda.max_memory_allocated()
+    trace = _traced_window(
+        lambda: _concurrent_search(base, name, q, threads, {"limit": 10}),
+        profile_dir, f"tier_{kind}")
+    return {
+        "points": n, "dim": d, "quantization": quant, "on_disk": True,
+        "ingest_s": ingest_s, "optimize_s": optimize_s, "first_search_s": first_search_s,
+        "codes_on_card_bytes": codes_bytes, "memmap_bytes": int(store._data.nbytes),
+        "memory_allocated_before_bytes": before, "max_memory_allocated_bytes": peak,
+        "requests": len(q), "threads": threads, "wall_s": wall, "qps": len(q) / wall,
+        "recall_at_10": recall, "score_rel_err": worst, "codes_only": codes_only, **trace,
+    }
+
+
+def run_tier(rng, storage, fs, n=1_000_000, n_tq=262_144, d=1536, n_queries=64,
+             threads=8, n_codes_only=16, profile_dir=None):
+    """The tier phase: int8 codes on the card over on-disk f32 rows at 1M x
+    1536, then 4-bit TurboQuant codes as the primary store of the first
+    n_tq rows, both through REST."""
+    from qdrant_tpu_torch.api.rest import RestServer
+    from qdrant_tpu_torch.api.toc import TableOfContent
+
+    toc = TableOfContent(storage)
+    srv = RestServer(toc, host="127.0.0.1", port=0)
+    srv.start_background()
+    base = f"http://127.0.0.1:{srv.port}"
+    try:
+        x = rng.standard_normal((n, d), dtype=np.float32)
+        q = rng.standard_normal((n_queries, d), dtype=np.float32)
+        truth, xn = _exact_cosine(x, q, 10)
+        sq = _serve_tier(
+            base, toc, fs, "tier_sq",
+            {"scalar": {"type": "int8", "quantile": 0.99, "always_ram": True}}, "sq",
+            x, q, truth, xn, threads, n_codes_only, profile_dir)
+        check(sq["max_memory_allocated_bytes"] < 3e9,
+              f"tier peak device memory {sq['max_memory_allocated_bytes']} >= 3 GB: "
+              "more than the codes went to the card")
+        toc.delete_collection("tier_sq")
+        n_tq = min(n_tq, n)
+        truth_tq, _ = _exact_cosine(x[:n_tq], q, 10)
+        tq = _serve_tier(
+            base, toc, fs, "tier_tq", {"turbo": {"bits": "bits4"}}, "tq",
+            x[:n_tq], q, truth_tq, xn[:n_tq], threads, n_codes_only, profile_dir)
+        return {"sq": sq, "tq": tq}
+    finally:
+        srv.shutdown()
+        toc.close()
+
+
+def _sparse_corpus(rng, n, vocab, avg_nnz=64):
+    """SPLADE-like rows: term frequency ~ rank^-0.9, Poisson(avg_nnz) terms
+    (min 4) drawn by inverse CDF, duplicate terms of a row dropped, weights
+    |N(1, 0.6)| + 0.05 → (indptr [n+1], terms, weights, cdf), rows sorted by
+    term."""
+    term_p = 1.0 / (np.arange(1, vocab + 1) ** 0.9)
+    term_p /= term_p.sum()
+    cdf = np.cumsum(term_p)
+    lens = np.maximum(rng.poisson(avg_nnz, size=n), 4)
+    total = int(lens.sum())
+    terms = np.searchsorted(cdf, rng.random(total)).astype(np.int64)
+    weights = np.abs(rng.normal(1.0, 0.6, size=total)).astype(np.float32) + 0.05
+    row = np.repeat(np.arange(n, dtype=np.int64), lens)
+    key = np.unique(row * vocab + terms, return_index=True)
+    row, terms, weights = key[0] // vocab, key[0] % vocab, weights[key[1]]
+    indptr = np.concatenate([[0], np.cumsum(np.bincount(row, minlength=n))])
+    return indptr, terms, weights, cdf
+
+
+def _rrf_truth(rankings, k, rrf_k=60):
+    """Reciprocal rank fusion of per-source id rankings (best first) → the
+    top-k ids, as Qdrant defines it: sum of 1 / (rrf_k + rank), rank from 1."""
+    scores = {}
+    for ids in rankings:
+        for rank, pid in enumerate(ids.tolist()):
+            scores[pid] = scores.get(pid, 0.0) + 1.0 / (rrf_k + rank + 1)
+    return np.array(sorted(scores, key=lambda p: -scores[p])[:k])
+
+
+def run_sparse(rng, storage, fs, n=1_000_000, d=128, vocab=30_000, n_queries=64,
+               threads=8, n_filtered=16, profile_dir=None):
+    """The sparse phase: sparse search, filtered sparse search and dense +
+    sparse RRF queries through REST over one sealed collection."""
+    import gc
+
+    import scipy.sparse as sp
+    import torch
+
+    from qdrant_tpu_torch.api.rest import RestServer
+    from qdrant_tpu_torch.api.toc import TableOfContent
+
+    toc = TableOfContent(storage)
+    srv = RestServer(toc, host="127.0.0.1", port=0)
+    srv.start_background()
+    base = f"http://127.0.0.1:{srv.port}"
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        # sealed once, by the upsert that brings the segment to n points
+        _call(base, "PUT", "/collections/splade",
+              {"vectors": {"size": d, "distance": "Euclid"},
+               "sparse_vectors": {"text": {}},
+               "optimizers_config": {"indexing_threshold": n}})
+        _call(base, "PUT", "/collections/splade/index",
+              {"field_name": "group", "field_schema": "keyword"})
+        indptr, terms, weights, cdf = _sparse_corpus(rng, n, vocab)
+        x = rng.standard_normal((n, d), dtype=np.float32)
+        member = rng.random(n) < 0.10
+        coll = toc.get_collection("splade")
+        t0 = time.perf_counter()
+        for lo in range(0, n, 8192):
+            coll.upsert([
+                {"id": i,
+                 "vector": {"": x[i].tolist(),
+                            "text": {"indices": terms[indptr[i]:indptr[i + 1]].tolist(),
+                                     "values": weights[indptr[i]:indptr[i + 1]].tolist()}},
+                 "payload": {"group": "a" if member[i] else "b"}}
+                for i in range(lo, min(lo + 8192, n))])
+        load_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        toc.optimize_all()
+        optimize_s = time.perf_counter() - t0
+        sealed = [s for s in coll.shards[0].segments if not s.appendable and len(s) == n]
+        check(bool(sealed), "the optimizer did not seal the sparse collection: "
+              f"{[(len(s), s.appendable) for s in coll.shards[0].segments]}")
+        index = sealed[0].sparse_index["text"]
+        t0 = time.perf_counter()
+        check(index._hybrid_ready(), "the sparse index is not on its hybrid path")
+        index_build_s = time.perf_counter() - t0
+        hot = index._hot[0]
+        jc = index._fwd_cold.shape[1] // 2
+        hot_cols = np.full(vocab, -1, dtype=np.int64)  # by term; the index
+        hot_cols[index._csr_host[2]] = index._hot[1]  # keeps them by term rank
+        cold_per_row = np.bincount(
+            np.repeat(np.arange(n), np.diff(indptr))[hot_cols[terms] < 0], minlength=n)
+        rows_cut_at_jc = np.flatnonzero(cold_per_row > jc)
+
+        q_lens = np.maximum(rng.poisson(48, size=n_queries), 4)
+        queries = []
+        for ln in q_lens:
+            t_u = np.unique(np.searchsorted(cdf, rng.random(ln)))
+            w = np.abs(rng.normal(1.0, 0.6, size=len(t_u))).astype(np.float32)
+            queries.append({"indices": t_u.tolist(), "values": w.tolist()})
+        # exact sparse truth: one scipy CSR product, independent of the port
+        x_csr = sp.csr_matrix((weights, terms, indptr), shape=(n, vocab))
+        q_mat = np.zeros((n_queries, vocab), np.float32)
+        for i, qv in enumerate(queries):
+            q_mat[i, qv["indices"]] = qv["values"]
+        s_all = np.asarray((x_csr @ q_mat.T).T)  # [nq, n]
+        part = np.argpartition(-s_all, 30, axis=1)[:, :30]
+        rows = np.arange(n_queries)[:, None]
+        truth30 = part[rows, np.argsort(-s_all[rows, part], axis=1)]
+
+        path = "/collections/splade/points/query"
+        bodies = [{"query": qv, "using": "text", "limit": 10} for qv in queries]
+        _concurrent_post(base, path, bodies[:1], 1)  # warm-up
+        res, wall = _concurrent_post(base, path, bodies, threads)
+        hits = [r["points"] for r in res]
+        check(all(len(h) == 10 for h in hits), "a sparse query returned fewer than 10 hits")
+        recall = _recall(hits, truth30, 10)
+        cut = set(rows_cut_at_jc.tolist())
+
+        def product_cut_at_jc(qi, pid):
+            """The product a row cut at Jc can reach: its hot terms and its
+            Jc heaviest cold terms (the forward rows keep those)."""
+            t = terms[indptr[pid]:indptr[pid + 1]]
+            w = weights[indptr[pid]:indptr[pid + 1]]
+            cold = np.flatnonzero(hot_cols[t] < 0)
+            keep = np.ones(len(t), bool)
+            keep[cold[np.argsort(-np.abs(w[cold]), kind="stable")[jc:]]] = False
+            return float(np.dot(w[keep].astype(np.float64), q_mat[qi, t[keep]]))
+
+        worst, short, cut_returned = 0.0, 0, 0
+        for qi, h in enumerate(hits):
+            for p in h:
+                ref = float(s_all[qi, p["id"]])
+                cut_returned += p["id"] in cut
+                if p["id"] in cut:  # may score short of the product, by the
+                    ref_cut = product_cut_at_jc(qi, p["id"])  # dropped terms only
+                    short += int(abs(ref_cut - ref) > 1e-4 * abs(ref))
+                    ref = ref_cut
+                worst = max(worst, abs(p["score"] - ref) / abs(ref))
+        check(worst <= 1e-4, f"sparse scores off by {worst} (relative)")
+        check(recall >= 0.95, f"sparse recall@10 {recall} < 0.95")
+        sparse_peak = torch.cuda.max_memory_allocated()
+        sparse_trace = _traced_window(
+            lambda: _concurrent_post(base, path, bodies, threads), profile_dir, "sparse")
+
+        flt = {"must": [{"key": "group", "match": {"value": "a"}}]}
+        f_res, _ = _concurrent_post(
+            base, path,
+            [{**b, "filter": flt, "with_payload": True} for b in bodies[:n_filtered]], threads)
+        f_hits = [r["points"] for r in f_res]
+        check(all(h and all(p["payload"]["group"] == "a" for p in h) for h in f_hits),
+              "a filtered sparse hit does not match the filter")
+        sub = np.nonzero(member)[0]
+        f_truth = sub[np.argsort(-s_all[:n_filtered, sub], axis=1)[:, :10]]
+        f_recall = _recall(f_hits, f_truth, 10)
+
+        # dense + sparse RRF: prefetch 30 of each, fuse, keep 10
+        dq = rng.standard_normal((n_queries, d), dtype=np.float32)
+        dense30 = _exact_topk(x, dq, 30, "euclid")
+        rrf_truth = [_rrf_truth([dense30[i], truth30[i]], 10) for i in range(n_queries)]
+        rrf_bodies = [
+            {"prefetch": [{"query": dq[i].tolist(), "limit": 30},
+                          {"query": queries[i], "using": "text", "limit": 30}],
+             "query": {"fusion": "rrf"}, "limit": 10}
+            for i in range(n_queries)]
+        _concurrent_post(base, path, rrf_bodies[:1], 1)  # warm-up (uploads the scan block)
+        torch.cuda.reset_peak_memory_stats()
+        fs.fused_scan_survivors.launches = fs.merge_survivors.launches = 0
+        r_res, r_wall = _concurrent_post(base, path, rrf_bodies, threads)
+        launches = fs.fused_scan_survivors.launches
+        merges = fs.merge_survivors.launches
+        check(launches > 0, "the RRF dense prefetch never launched the bf16 scan kernel")
+        r_hits = [r["points"] for r in r_res]
+        check(all(len(h) == 10 for h in r_hits), "an RRF query returned fewer than 10 hits")
+        rrf_recall = _recall(r_hits, rrf_truth, 10)
+        rrf_peak = torch.cuda.max_memory_allocated()
+        rrf_trace = _traced_window(
+            lambda: _concurrent_post(base, path, rrf_bodies, threads), profile_dir, "rrf")
+        return {
+            "points": n, "dense_dim": d, "vocab": vocab, "postings": int(indptr[-1]),
+            "load_s": load_s, "load_points_per_s": n / load_s, "optimize_s": optimize_s,
+            "index_build_s": index_build_s, "hot_shape": list(hot.shape),
+            "hot_bytes": hot.numel() * 4, "jc": jc, "rows_cut_at_jc": int(len(rows_cut_at_jc)),
+            "sparse": {"requests": n_queries, "threads": threads, "wall_s": wall,
+                       "qps": n_queries / wall, "recall_at_10": recall,
+                       "score_rel_err": worst, "returned_rows_cut_at_jc": cut_returned,
+                       "scores_short_at_jc": short,
+                       "max_memory_allocated_bytes": sparse_peak, **sparse_trace},
+            "filtered": {"requests": n_filtered, "matching": int(member.sum()),
+                         "recall_at_10": f_recall},
+            "rrf": {"requests": n_queries, "threads": threads, "wall_s": r_wall,
+                    "qps": n_queries / r_wall, "recall_at_10_vs_exact_rrf": rrf_recall,
+                    "kernel_launches": launches, "merge_launches": merges,
+                    "max_memory_allocated_bytes": rrf_peak, **rrf_trace},
+        }
+    finally:
+        srv.shutdown()
+        toc.close()
+
+
 def _exact_cosine(x, q, k, chunk=131072):
     """Numpy cosine brute force, independent of the port, in row chunks →
     (ids [B, k] best first, the unit-normalised rows)."""
@@ -796,6 +1184,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--phases", default=",".join(ALL_PHASES))
+    ap.add_argument("--sparse-rows", type=int, default=1_000_000,
+                    help="points of the sparse phase (its shape has 1,000,000; "
+                    "fewer, not under 262,144, for a short run)")
     ap.add_argument("--profile", metavar="DIR",
                     help="trace one extra REST window with torch.profiler into DIR")
     args = ap.parse_args()
@@ -817,12 +1208,21 @@ def main() -> int:
         print(f"chip_smoke: the qdrant_tpu_torch package is missing ({exc}); "
               "run from the repository root", file=sys.stderr)
         return 2
-    torch.backends.cuda.matmul.allow_tf32 = False  # plain versions in full f32
+    # The port needs true f32 products (plain versions, the sparse hot
+    # product, the TQ scan): TF32 must be off, as torch leaves it by default.
+    check(not torch.backends.cuda.matmul.allow_tf32
+          and torch.get_float32_matmul_precision() == "highest",
+          "TF32 matmuls are on: the port's f32 scores need them off")
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
     print(f"card: {card}", flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
+    t_start = time.perf_counter()
+
+    def lap(phase):
+        print(f"elapsed after {phase}: {time.perf_counter() - t_start:.1f} s", flush=True)
+
     rng = np.random.default_rng(args.seed)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(args.seed)
@@ -847,6 +1247,9 @@ def main() -> int:
     # `graph_ms` the same in a replayed CUDA graph, `scan_ms` the scan alone
     row_keys = ("ms", "graph_ms", "scan_ms", "plain_ms", "bound_ms", "bound_by",
                 "chunks", "ctas")
+    # the kernel phase's comparison at each main-path phase's launch shape,
+    # and the launches each of those phases made: {phase: ...}
+    at_launch, launched = {}, {}
 
     if "build" in phases or "kernel" in phases or "sweep" in phases:
         t0 = time.perf_counter()
@@ -857,52 +1260,75 @@ def main() -> int:
             if any(w in line for w in ("Compiling entry", "registers", "spill")):
                 print(f"build: ptxas {line.strip()}")
     if "kernel" in phases:
+        # the shapes the main-path phases launch: batches of a few requests
+        # padded to 8 rows (the grid is blk 4096 x 16 slots for every limit up
+        # to 2,048). filtered: D=100 padded to 128, 10% of rows live. rrf: the
+        # dense prefetch (limit 30) over the sparse phase's points.
+        rest_kw = dict(b=8, n=1_000_000, d=128, euclid=True, deleted_frac=0.0)
+        rrf_kw = dict(rest_kw, n=args.sparse_rows)
         max_err = 0.0
-        for name, kw in (
-            ("euclid_1m_128", dict(b=256, n=1_000_000, d=128, euclid=True, deleted_frac=0.1)),
-            ("dot_100k_1536", dict(b=256, n=100_000, d=1536, euclid=False, deleted_frac=0.0)),
-            # the shapes the rest and filtered phases launch: batches of a few
-            # requests padded to 8 rows; D=100 padded to 128, 10% of rows live
-            ("rest_euclid_1m_128_b8", dict(b=8, n=1_000_000, d=128, euclid=True, deleted_frac=0.0)),
-            ("filtered_cosine_100k_100_b8",
+        for name, phase, kw in (
+            ("euclid_1m_128", None,
+             dict(b=256, n=1_000_000, d=128, euclid=True, deleted_frac=0.1)),
+            ("dot_100k_1536", None,
+             dict(b=256, n=100_000, d=1536, euclid=False, deleted_frac=0.0)),
+            ("rest_euclid_1m_128_b8", "rest", rest_kw),
+            ("filtered_cosine_100k_100_b8", "filtered",
              dict(b=8, n=100_000, d=100, d_pad=128, euclid=False, deleted_frac=0.9)),
+            ("rrf_dense_prefetch_b8", "rrf", rrf_kw),
             # rows too wide for a resident query tile: the queries stream
-            ("wide_dot_65k_12288_b8",
+            ("wide_dot_65k_12288_b8", None,
              dict(b=8, n=65_536, d=12_288, euclid=False, deleted_frac=0.1)),
         ):
+            if phase == "rrf" and kw == rest_kw:  # one launch shape, compared once
+                at_launch["rrf"] = at_launch["rest"]
+                print(f"kernel {name}: the launch of rest_euclid_1m_128_b8", flush=True)
+                continue
             res = compare_kernel(rng, **kw)
             print(f"kernel {name}: {json.dumps(res)} ({card})", flush=True)
             max_err = max(max_err, res["max_abs_err"])
-            if name == "rest_euclid_1m_128_b8":  # the main path's launch shape
-                rows["bf16"].update({k: res[k] for k in row_keys})
-                rows["merge"].update({k: res["merge"][k] for k in (
-                    "ms", "graph_ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")},
-                    shape=res["shape"], chunks=res["chunks"])
+            if phase:
+                at_launch[phase] = res
+        res = at_launch["rest"]  # the row's own numbers: the sift1m launch
+        rows["bf16"].update({k: res[k] for k in row_keys}, shape=res["shape"])
+        rows["merge"].update({k: res["merge"][k] for k in (
+            "ms", "graph_ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")},
+            shape=res["shape"], chunks=res["chunks"])
         rows["bf16"]["max_abs_err"] = max_err
         max_err = 0.0
-        for name, kw in (
+        for name, phase, kw in (
             # the sq phase's launch: a few requests padded to 8 rows
-            ("sq_cosine_1m_1536_b8", dict(b=8, n=1_000_000, d=1536, euclid=False,
-                                          deleted_frac=0.1)),
-            ("sq_cosine_1m_1536_b256", dict(b=256, n=1_000_000, d=1536, euclid=False,
-                                            deleted_frac=0.1)),
-            ("sq_euclid_1m_128_b8", dict(b=8, n=1_000_000, d=128, euclid=True,
-                                         deleted_frac=0.1)),
+            ("sq_cosine_main_path_b8", "sq",
+             dict(b=8, n=SQ_ROWS, d=1536, euclid=False, deleted_frac=0.0)),
+            # the benchmark's full row count
+            ("sq_cosine_1m_1536_b8", None,
+             dict(b=8, n=1_000_000, d=1536, euclid=False, deleted_frac=0.1)),
+            ("sq_cosine_1m_1536_b256", None,
+             dict(b=256, n=1_000_000, d=1536, euclid=False, deleted_frac=0.1)),
+            ("sq_euclid_1m_128_b8", None,
+             dict(b=8, n=1_000_000, d=128, euclid=True, deleted_frac=0.1)),
             # rows too wide for a resident query tile: the queries stream
-            ("sq_wide_65k_24576_b8", dict(b=8, n=65_536, d=24_576, euclid=False,
-                                          deleted_frac=0.1)),
+            ("sq_wide_65k_24576_b8", None,
+             dict(b=8, n=65_536, d=24_576, euclid=False, deleted_frac=0.1)),
         ):
             res = compare_kernel_int8(gen, **kw)
             print(f"kernel {name}: {json.dumps(res)} ({card})", flush=True)
             max_err = max(max_err, res["max_abs_err"])
-            if name == "sq_cosine_1m_1536_b8":
-                rows["int8"].update({k: res[k] for k in row_keys})
+            if phase:
+                at_launch[phase] = res
+                rows["int8"].update({k: res[k] for k in row_keys}, shape=res["shape"])
             torch.cuda.empty_cache()
         rows["int8"]["max_abs_err"] = max_err
+    lap("kernel")
     if "sweep" in phases:
         sweep(gen, fs, card)
     storage_root = os.path.join(ROOT, "build")
     os.makedirs(storage_root, exist_ok=True)
+    # on-disk vector stores put their memmaps under the temp directory: keep
+    # them inside the checkout's ignored build/ directory
+    tempfile.tempdir = storage_root
+    free_gb = shutil.disk_usage(storage_root).free / 1e9
+    print(f"storage: {storage_root} ({free_gb:.1f} GB free)", flush=True)
     if "rest" in phases:
         storage = tempfile.mkdtemp(prefix="smoke_rest_", dir=storage_root)
         try:
@@ -910,8 +1336,8 @@ def main() -> int:
         finally:
             shutil.rmtree(storage, ignore_errors=True)
         print(f"rest sift1m: {json.dumps(res)} ({card})", flush=True)
-        rows["bf16"]["launches"] += res["kernel_launches"]
-        rows["merge"]["launches"] += res["merge_launches"]
+        lap("rest")
+        launched["rest"] = ("bf16", res["kernel_launches"], res["merge_launches"])
     if "filtered" in phases:
         storage = tempfile.mkdtemp(prefix="smoke_filtered_", dir=storage_root)
         try:
@@ -919,8 +1345,8 @@ def main() -> int:
         finally:
             shutil.rmtree(storage, ignore_errors=True)
         print(f"filtered glove100: {json.dumps(res)} ({card})", flush=True)
-        rows["bf16"]["launches"] += res["kernel_launches"]
-        rows["merge"]["launches"] += res["merge_launches"]
+        lap("filtered")
+        launched["filtered"] = ("bf16", res["kernel_launches"], res["merge_launches"])
     if "sq" in phases:
         storage = tempfile.mkdtemp(prefix="smoke_sq_", dir=storage_root)
         try:
@@ -928,12 +1354,46 @@ def main() -> int:
         finally:
             shutil.rmtree(storage, ignore_errors=True)
         print(f"sq dbpedia: {json.dumps(res)} ({card})", flush=True)
+        lap("sq")
         codes_only = res["codes_only"]
-        rows["int8"]["launches"] += res["int8_kernel_launches"] + codes_only["int8_kernel_launches"]
-        rows["merge"]["launches"] += res["merge_launches"] + codes_only["merge_launches"]
+        launched["sq"] = ("int8",
+                          res["int8_kernel_launches"] + codes_only["int8_kernel_launches"],
+                          res["merge_launches"] + codes_only["merge_launches"])
+    if "tier" in phases:
+        storage = tempfile.mkdtemp(prefix="smoke_tier_", dir=storage_root)
+        tempfile.tempdir = storage  # the tier's memmaps go with its storage
+        try:
+            res = run_tier(rng, storage, fs, profile_dir=args.profile)
+        finally:
+            tempfile.tempdir = storage_root
+            shutil.rmtree(storage, ignore_errors=True)
+        print(f"tier sq: {json.dumps(res['sq'])} ({card})", flush=True)
+        print(f"tier tq: {json.dumps(res['tq'])} ({card})", flush=True)
+        lap("tier")
+    if "sparse" in phases:
+        storage = tempfile.mkdtemp(prefix="smoke_sparse_", dir=storage_root)
+        try:
+            res = run_sparse(rng, storage, fs, n=args.sparse_rows, profile_dir=args.profile)
+        finally:
+            shutil.rmtree(storage, ignore_errors=True)
+        print(f"sparse splade: {json.dumps(res)} ({card})", flush=True)
+        lap("sparse")
+        launched["rrf"] = ("bf16", res["rrf"]["kernel_launches"], res["rrf"]["merge_launches"])
+    check(not torch.backends.cuda.matmul.allow_tf32, "a phase turned TF32 matmuls on")
     check("jax" not in sys.modules, "the port imported jax")
     reference = sorted(m for m in sys.modules if m.split(".")[0] == "qdrant_tpu")
     check(not reference, f"the port imported the JAX package: {reference}")
+    # each row's `launches` is the sum over the main-path phases; `by_phase`
+    # keeps every phase's own count beside the kernel's numbers at the shape
+    # that phase launches, so no launch is booked under another shape's time
+    for phase, (mode, n_scan, n_merge) in launched.items():
+        res = at_launch.get(phase, {})
+        for key, count, src in ((mode, n_scan, res), ("merge", n_merge, res.get("merge", {}))):
+            rows[key]["launches"] += count
+            rows[key].setdefault("by_phase", {})[phase] = {
+                "launches": count, "shape": res.get("shape"),
+                **{k: src[k] for k in ("ms", "graph_ms", "plain_ms", "bound_ms", "bound_by",
+                                       "max_abs_err") if k in src}}
     print(json.dumps({"kernels": list(rows.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,7 +8,11 @@ whose stores read and write the same files.
 `scan_index_from_jax` moves a built JAX `ScanIndex` block onto the device
 without re-deriving it from the f32 rows; `quantized_from_jax` carries a JAX
 quantized encoding (SQ, BQ, PQ or TQ) across in memory, where the main route
-is the `quant_*/` directory a JAX-written segment already holds.
+is the `quant_*/` directory a JAX-written segment already holds: the tier's
+device layouts (`scan_device`, `flat_device`) are derived from the carried
+codes on first use. `sparse_index_from_jax` carries a JAX sparse store's rows
+across as flat numpy arrays, where the main route is the `sparse_*/`
+directory.
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ import numpy as np
 import torch
 
 from .device import default_device
+from .index.sparse import SparseIndex, SparseVectorStore
 from .ops import quantization as qops
 from .ops.fused_scan import DEFAULT_BLK
 from .ops.scan import ScanIndex
@@ -72,3 +77,22 @@ def quantized_from_jax(q):
             np.asarray(q.norms_sq), q.dim,
         )
     raise TypeError(f"not a JAX quantized encoding: {kind}")
+
+
+def sparse_index_from_jax(index) -> SparseIndex:
+    """The port's SparseIndex over a copy of a JAX `SparseIndex`'s store: the
+    live rows cross as the store's flat numpy arrays (dims, weights, row
+    lengths, row offsets), deleted rows stay deleted placeholders at their
+    offsets, and the modifier is kept."""
+    src = index.store
+    dims, weights, lens, offs = (np.asarray(a) for a in src.flat_arrays())
+    n = len(src)
+    row_lens = np.zeros(n, dtype=np.int64)
+    row_lens[offs] = lens
+    store = SparseVectorStore()
+    store.add_flat(row_lens, dims.copy(), weights.copy())
+    live = np.zeros(n, dtype=bool)
+    live[offs] = True
+    for off in np.flatnonzero(~live):
+        store.delete(int(off))
+    return SparseIndex(store, index.modifier)

@@ -38,6 +38,21 @@ def tensor_bytes(*tensors: Optional[torch.Tensor]) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
+def require_exact_f32_matmul(t: torch.Tensor) -> None:
+    """Raise if an f32 product on `t`'s device would run in TF32. The sparse
+    hot product and the TQ scan rely on true f32 products (the JAX programs
+    ask for `Precision.HIGHEST` / an f32 result); TF32 rounds the operands to
+    10 mantissa bits, which shows in the third digit of a score."""
+    if t.is_cuda and (
+        torch.backends.cuda.matmul.allow_tf32
+        or torch.get_float32_matmul_precision() != "highest"
+    ):
+        raise RuntimeError(
+            "TF32 matmuls are enabled (torch.backends.cuda.matmul.allow_tf32 / "
+            "float32_matmul_precision); the port's f32 scores need them off"
+        )
+
+
 def force_cpu() -> None:
     """Pin the port to the CPU (the explicit `--force-cpu` switch)."""
     global _FORCED

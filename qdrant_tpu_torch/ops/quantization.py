@@ -12,7 +12,12 @@ package opens in the other.
     ones score with `score_sq`.
   * BQ — sign bits, held as int8 ±1 on the device (bit-packed on disk).
   * TQ — randomized Hadamard rotation + per-vector Lloyd-Max levels; scored
-    as one bf16 product, as the JAX function does.
+    as one bf16 product, as the JAX function does. As the primary store of an
+    on-disk vector its packed level indices are the only device residency
+    (`flat_device`, scanned by ops/scan.py::scan_search_tq_flat).
+  * SQ of an on-disk vector (the quantized-primary tier) is scanned by the
+    torch scans of ops/scan.py over `scan_device`, as the JAX engine keeps
+    that tier off its Pallas kernel.
   * PQ — per-subspace 256-centroid codebooks (k-means on the host) and
     query lookup tables summed over subspaces.
 
@@ -33,6 +38,7 @@ from ..device import default_device, tensor_bytes
 from ..types import Distance
 
 NEG_INF = float(-np.inf)
+_UPLOAD_ROWS = 131072  # host→device upload chunk
 
 
 def _host_bytes(obj, *attrs):
@@ -72,6 +78,7 @@ class ScalarQuantized:
         self.norms_sq = norms_sq  # [N] f32 — exact ||v||² of ORIGINAL vectors
         self._dev: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
         self._kernel_dev: Optional[Tuple[torch.Tensor, np.ndarray, int]] = None
+        self._scan_dev: Optional[Tuple[torch.Tensor, torch.Tensor, int]] = None
 
     @classmethod
     def encode(cls, vectors: np.ndarray, quantile: float = 0.99) -> "ScalarQuantized":
@@ -102,6 +109,26 @@ class ScalarQuantized:
             )
         return self._dev
 
+    def scan_device(self, block: int) -> Tuple[torch.Tensor, torch.Tensor, int]:
+        """Block-padded device tensors for the torch scans of ops/scan.py
+        (the quantized-primary tier) → (codes [n_pad, d8] int8, norms [n_pad]
+        f32, n_pad). Columns are zero-padded to a multiple of 8, the shape
+        rule of the card's int8 product; a zero column adds nothing to a dot.
+        Uploaded in row chunks, so the host never holds a padded copy."""
+        if self._scan_dev is None or self._scan_dev[2] % block:
+            n, d = self.codes.shape
+            n_pad = max((n + block - 1) // block * block, block)
+            self._scan_dev = None  # free the old block before the new upload
+            dev = default_device()
+            codes = torch.zeros((n_pad, (d + 7) // 8 * 8), dtype=torch.int8, device=dev)
+            for i in range(0, n, _UPLOAD_ROWS):
+                part = np.ascontiguousarray(self.codes[i : i + _UPLOAD_ROWS])
+                codes[i : i + len(part), :d] = torch.from_numpy(part).to(dev)
+            norms = torch.zeros(n_pad, dtype=torch.float32, device=dev)
+            norms[:n] = torch.from_numpy(np.asarray(self.norms_sq, np.float32)).to(dev)
+            self._scan_dev = (codes, norms, n_pad)
+        return self._scan_dev
+
     def kernel_device(self, block: int) -> Tuple[torch.Tensor, np.ndarray, int]:
         """Operands of the fused scan's int8 mode (ops/fused_scan.py) →
         (codes [n_pad, d_pad] int8 on the device, norms [n_pad] f32 on the
@@ -123,7 +150,7 @@ class ScalarQuantized:
         host = _host_bytes(self, "codes", "norms_sq")
         kd = self._kernel_dev or (None, None, 0)
         host["host_bytes"] += 0 if kd[1] is None else int(kd[1].nbytes)
-        return _with_device(host, *(self._dev or ()), kd[0])
+        return _with_device(host, *(self._dev or ()), kd[0], *(self._scan_dev or ())[:2])
 
     def encode_queries(self, queries: np.ndarray) -> np.ndarray:
         return np.clip(np.round(queries / self.scale), -127, 127).astype(np.int8)
@@ -283,6 +310,7 @@ class TurboQuantized:
         self.norms_sq = norms_sq  # [N] exact ||v||² of ORIGINAL vectors
         self.dim = dim
         self._dev = None
+        self._flat_dev = None
         self._rot = None
 
     @classmethod
@@ -320,7 +348,8 @@ class TurboQuantized:
 
     def memory_usage_bytes(self):
         return _with_device(
-            _host_bytes(self, "codes", "scales", "norms_sq", "_rot"), *(self._dev or ())
+            _host_bytes(self, "codes", "scales", "norms_sq", "_rot"),
+            *(self._dev or ()), *(self._flat_dev or ())[:4],
         )
 
     def rotate_queries(self, queries: np.ndarray) -> np.ndarray:
@@ -329,6 +358,55 @@ class TurboQuantized:
         qp = np.zeros((q.shape[0], rot.shape[0]), dtype=np.float32)
         qp[:, : self.dim] = q
         return qp @ rot
+
+    @property
+    def pack_factor(self) -> int:
+        """Level indices per device byte (TQ-as-primary residency)."""
+        return {4: 2, 2: 4, 1.5: 4, 1: 8}.get(self.bits, 1)
+
+    def flat_packed(self, n_pad: int) -> np.ndarray:
+        """[n_pad, D_pad / pack_factor] uint8, HALF-SPLIT packing: byte
+        column j holds dims {j, j + D/p, j + 2D/p, ...}, the first of them in
+        the highest bits, so the scan's unpack is a concatenation of p
+        contiguous sub-ranges (ops/scan.py::scan_search_tq_flat)."""
+        n, d_pad = self.codes.shape
+        p = self.pack_factor
+        c = np.zeros((n_pad, d_pad), dtype=np.uint8)
+        c[:n] = self.codes.astype(np.uint8)
+        if p == 1:
+            return c
+        w = 8 // p
+        half = d_pad // p
+        packed = np.zeros((n_pad, half), dtype=np.uint8)
+        for j in range(p):
+            packed |= c[:, j * half : (j + 1) * half] << ((p - 1 - j) * w)
+        return packed
+
+    def flat_device(self, block: int):
+        """TQ-as-primary device tensors for the flat scan (reference:
+        TurboVectorStorageImpl, vector_storage/turbo/mod.rs:1-29 — TQ codes
+        ARE the storage, not a sidecar): level indices packed `pack_factor`
+        per byte, the only device residency of the vector.
+        → (packed [N_pad, D_pad/p] uint8, scales [N_pad], norms [N_pad],
+           levels [L] f32, n_pad)."""
+        if self._flat_dev is None or self._flat_dev[4] % block:
+            n = self.codes.shape[0]
+            n_pad = max((n + block - 1) // block * block, block)
+            scales = np.zeros(n_pad, dtype=np.float32)
+            scales[:n] = self.scales
+            norms = np.zeros(n_pad, dtype=np.float32)
+            norms[:n] = self.norms_sq
+            _, levels = _lloyd_max(self.bits)
+            dev = default_device()
+            self._flat_dev = None  # free the old block before the new upload
+            self._flat_dev = (
+                torch.from_numpy(self.flat_packed(n_pad)).to(dev),
+                torch.from_numpy(scales).to(dev),
+                torch.from_numpy(norms).to(dev),
+                torch.from_numpy(levels.astype(np.float32)).to(dev),
+                n_pad,
+            )
+        return self._flat_dev
 
     def save(self, path: str) -> None:
         os.makedirs(path, exist_ok=True)

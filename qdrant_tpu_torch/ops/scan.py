@@ -1,5 +1,6 @@
 """Device-resident blocked-scan searcher (counterpart of the single-device
-bf16 part of qdrant_tpu/ops/scan.py::ScanIndex).
+bf16 part of qdrant_tpu/ops/scan.py::ScanIndex) and the quantized block scans
+of the same file.
 
 The block is stored as the fused scan kernel wants it (ops/fused_scan.py):
 bf16 rows padded to [n_pad, d_pad], pre-scaled by 2 for euclid so the
@@ -8,6 +9,15 @@ NEG_INF for deleted, filtered and pad rows). The JAX package sizes its block
 and query tile to the TPU's VMEM window; here rows are padded to 4,096-row
 blocks and a search scans with 16 slots (2,048 survivor bins) at every width,
 widened only for large limits (fused_scan.scan_grid).
+
+The quantized scans (`scan_search_sq`, `scan_search_sq_flat`,
+`scan_search_tq_flat`, `scan_search_sq_rescore`) were `jax.jit` programs
+outside any Pallas kernel; here they are plain functions on tensors that run
+on the device their operands lie on. They keep the JAX candidates: one winner
+per (block of DEFAULT_BLOCK rows, lane of 128), first index on ties, then a
+top-k. The codes are walked as row slices of the flat [N, D] tensor (views):
+no second copy of the codes is ever made, which is what lets a codes block
+that fills most of the card's memory be served (the quantized-primary tier).
 """
 
 from __future__ import annotations
@@ -18,7 +28,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from ..device import default_device
+from ..device import default_device, require_exact_f32_matmul
 from .fused_scan import (
     DEFAULT_BLK,
     NEG_INF,
@@ -27,7 +37,195 @@ from .fused_scan import (
     scan_grid,
 )
 
+NEG_INF_F = float("-inf")
 _UPLOAD_ROWS = 131072  # host→device upload chunk (bounds the f32 staging copy)
+
+LANES = 128
+DEFAULT_BLOCK = 8192  # rows per candidate block of the quantized scans
+# elements of a [rows, B] temporary a quantized scan may hold at once
+_STEP_ELEMS = 1 << 20
+
+
+def lane_group_winners(s: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """[B, nb, g, LANES] scores → (max [B, nb, LANES], group index of the
+    first maximum [B, nb, LANES] int64): `jnp.max` / `jnp.argmax` over the
+    group axis, with the tie order spelled out."""
+    g = s.shape[2]
+    best = s.max(dim=2).values
+    group = torch.arange(g, device=s.device)[None, None, :, None]
+    first = torch.where(s == best[:, :, None, :], group, g).min(dim=2).values
+    return best, first
+
+
+def _int8_dots(q_codes: torch.Tensor, cblk: torch.Tensor) -> torch.Tensor:
+    """int8 [B, D] · int8 [R, D]ᵀ → [B, R] f32: the exact int32 sums, each
+    rounded once to f32 (at D = 1536 they pass 2^24, so the rounding is part
+    of the score). On the card `torch._int_mm` (its shape rules: more than 16
+    rows on the left, K and N multiples of 8 — the callers pad); an int32
+    product on the CPU."""
+    if cblk.is_cuda:
+        return torch._int_mm(cblk, q_codes.t()).t().contiguous().float()
+    return (q_codes.int() @ cblk.int().T).float()
+
+
+def block_lane_winners(n: int, b: int, blk: int, score_rows, device):
+    """Walk [0, n) in steps of whole blocks; `score_rows(off, rows)` → [B,
+    rows] f32 scores (-inf where masked). → one winner per (block, lane):
+    (scores [B, nb*LANES], row ids [B, nb*LANES] int64)."""
+    nb, g = n // blk, blk // LANES
+    ms = torch.empty((b, nb, LANES), dtype=torch.float32, device=device)
+    ams = torch.empty((b, nb, LANES), dtype=torch.int64, device=device)
+    step = min(n, max(blk, _STEP_ELEMS // max(b, 1) // blk * blk))
+    for off in range(0, n, step):
+        rows = min(step, n - off)
+        s = score_rows(off, rows).reshape(b, rows // blk, g, LANES)
+        m, a = lane_group_winners(s)
+        ms[:, off // blk : (off + rows) // blk] = m
+        ams[:, off // blk : (off + rows) // blk] = a
+    lane = torch.arange(LANES, device=device)
+    ids = torch.arange(nb, device=device)[None, :, None] * blk + ams * LANES + lane
+    return ms.reshape(b, -1), ids.reshape(b, -1)
+
+
+def _top_winners(flat_s, flat_i, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    top_s, ti = torch.topk(flat_s, min(k, flat_s.shape[1]), dim=1)
+    top_i = torch.gather(flat_i, 1, ti)
+    top_i = torch.where(torch.isfinite(top_s), top_i, -1)
+    return top_s, top_i.to(torch.int32)
+
+
+def _pad_sq_queries(q_codes: torch.Tensor, width: int) -> torch.Tensor:
+    """Query codes padded to `torch._int_mm`'s shape rules (rows to a
+    multiple of 8, columns to the codes' width); zero rows and columns add
+    nothing to a dot."""
+    b, d = q_codes.shape
+    b_pad = (b + 7) // 8 * 8
+    if b_pad == b and d == width:
+        return q_codes
+    out = torch.zeros((b_pad, width), dtype=torch.int8, device=q_codes.device)
+    out[:b, :d] = q_codes
+    return out
+
+
+def scan_search_sq_flat(
+    q_codes: torch.Tensor,  # [B, D] int8
+    q_norms: torch.Tensor,  # [B] f32
+    codes: torch.Tensor,  # [N, D'] int8 — read in place (D' >= D, zero columns)
+    norms: torch.Tensor,  # [N] f32
+    scale: float,
+    mask: torch.Tensor,  # [N] int8 / bool validity
+    blk: int = DEFAULT_BLOCK,
+    k: int = 10,
+    euclid: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Blocked int8 scan with the strided group-reduction top-k, over codes
+    that may fill most of the card's memory: each step scores a row slice of
+    the flat tensor, so peak memory is the codes plus [rows, B] temporaries.
+    Scores are int32 dots → f32, then · scale² (f32), as the JAX program
+    rounds them. → (scores [B, k], ids [B, k] int32, -1 = none)."""
+    b = q_codes.shape[0]
+    n = codes.shape[0]
+    qp = _pad_sq_queries(q_codes, codes.shape[1])
+    s2 = torch.tensor(scale, dtype=torch.float32, device=codes.device)
+    s2 = s2 * s2
+    live = mask != 0
+
+    def score_rows(off: int, rows: int) -> torch.Tensor:
+        dots = _int8_dots(qp, codes[off : off + rows])[:b] * s2
+        if euclid:
+            dots = 2.0 * dots - q_norms[:, None] - norms[None, off : off + rows]
+        return torch.where(live[None, off : off + rows], dots, NEG_INF_F)
+
+    return _top_winners(*block_lane_winners(n, b, blk, score_rows, codes.device), k)
+
+
+# In the JAX package the blocked variant reshapes the codes to [nb, blk, D]
+# (a second full copy under XLA) and the flat variant exists to avoid that; a
+# row slice of a torch tensor is a view either way, so both names are one
+# function here.
+scan_search_sq = scan_search_sq_flat
+
+
+def scan_search_tq_flat(
+    q_rot: torch.Tensor,  # [B, D_pad] f32 rotated queries
+    q_norms: torch.Tensor,  # [B] f32 exact ||q||² (pre-rotation)
+    packed: torch.Tensor,  # [N, D_pad/pack] uint8 — TQ level indices, packed
+    scales: torch.Tensor,  # [N] f32 per-vector scale
+    norms: torch.Tensor,  # [N] f32 exact original norms
+    levels: torch.Tensor,  # [L] f32 Lloyd-Max reconstruction levels
+    mask: torch.Tensor,  # [N] int8 / bool validity
+    blk: int = DEFAULT_BLOCK,
+    k: int = 10,
+    euclid: bool = False,
+    pack: int = 2,
+    bits_w: int = 4,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """TQ-as-primary flat scan (reference: vector_storage/turbo/mod.rs — the
+    quantized codes ARE the storage): per step, slice the packed bytes, unpack
+    `pack` level indices per byte (half-split: byte column j carries dims
+    {j, j + D/p, ...}, sub-byte `pack - 1 - j` first), look the levels up and
+    score. Queries and levels are rounded to bf16 and their products summed
+    in f32, as the JAX program's `preferred_element_type=f32` product does:
+    the looked-up block is upcast to f32 (a per-step temporary), because a
+    bf16 @ bf16 torch product would round every score to bf16."""
+    require_exact_f32_matmul(packed)
+    b = q_rot.shape[0]
+    n = packed.shape[0]
+    qb = q_rot.to(torch.bfloat16).float()
+    lv = levels.to(torch.bfloat16).float()
+    lmask = (1 << bits_w) - 1
+    live = mask != 0
+    # the unpacked block is [rows, D_pad] int32 + f32: keep it near 128 MB
+    d_pad = packed.shape[1] * pack
+    rows_cap = max(blk, (1 << 24) // d_pad // blk * blk)
+
+    def score_rows(off: int, rows: int) -> torch.Tensor:
+        out = torch.empty((b, rows), dtype=torch.float32, device=packed.device)
+        for lo in range(0, rows, rows_cap):
+            hi = min(lo + rows_cap, rows)
+            pblk = packed[off + lo : off + hi]  # [r, D/p] view
+            subs = [
+                (pblk >> ((pack - 1 - j) * bits_w)) & lmask for j in range(pack)
+            ]
+            recon = lv[torch.cat(subs, dim=1).int()]  # [r, D_pad] f32
+            out[:, lo:hi] = (qb @ recon.T) * scales[None, off + lo : off + hi]
+        if euclid:
+            out = 2.0 * out - q_norms[:, None] - norms[None, off : off + rows]
+        return torch.where(live[None, off : off + rows], out, NEG_INF_F)
+
+    return _top_winners(*block_lane_winners(n, b, blk, score_rows, packed.device), k)
+
+
+def scan_search_sq_rescore(
+    q_codes: torch.Tensor,  # [B, D] int8
+    q_norms: torch.Tensor,  # [B] f32
+    codes: torch.Tensor,  # [N, D] int8
+    norms: torch.Tensor,  # [N] f32
+    scale: float,
+    mask: torch.Tensor,  # [N] int8 / bool
+    queries_f32: torch.Tensor,  # [B, D] f32 (distance-preprocessed)
+    vectors_f32: torch.Tensor,  # [Nf, D] f32 row-aligned with codes
+    blk: int,
+    k_fetch: int,
+    k: int,
+    euclid: bool,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """int8 blocked scan + exact f32 rescore of its k_fetch winners."""
+    _, cand = scan_search_sq(
+        q_codes, q_norms, codes, norms, scale, mask, blk, k_fetch, euclid
+    )
+    cv = vectors_f32[cand.clamp(min=0).long()].float()  # [B, kf, D]
+    q = queries_f32[:, : cv.shape[-1]]
+    if euclid:
+        diff = q[:, None, :] - cv
+        re = -(diff * diff).sum(dim=-1)
+    else:
+        re = torch.einsum("bd,bkd->bk", q, cv)
+    re = torch.where(cand >= 0, re, NEG_INF_F)
+    top_s, ti = torch.topk(re, min(k, re.shape[1]), dim=1)
+    top_i = torch.gather(cand, 1, ti)
+    top_i = torch.where(torch.isfinite(top_s), top_i, -1)
+    return top_s, top_i
 
 
 class ScanIndex:

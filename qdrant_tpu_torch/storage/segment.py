@@ -1,19 +1,22 @@
-"""Segment: the per-shard storage + index unit, dense branch (counterpart of
+"""Segment: the per-shard storage + index unit (counterpart of
 qdrant_tpu/storage/segment.py).
 
-Id tracker + named dense vector stores + payload storage / index, with
-versioned idempotent ops keyed by op_num. A dense search answers exactly
+Id tracker + named dense and sparse vector stores + payload storage / index,
+with versioned idempotent ops keyed by op_num. A dense search answers exactly
 through PlainIndex (the fused scan kernel's bf16 mode at 65,536 rows or
 more), unless the vector is quantized: sealing (`build_indexes`) encodes a
 vector with a quantization config as the JAX seal does, and its searches
 score the codes, oversample and rescore in f32 — through the fused scan
-kernel's int8 mode for SQ at 65,536 rows or more. Sealing builds no graph in
-this port.
+kernel's int8 mode for SQ at 65,536 rows or more. A quantized `on_disk`
+vector is the quantized-primary tier: only its codes live on the device
+(scanned by the torch scans of ops/scan.py, as the JAX engine keeps this tier
+off its Pallas kernel) and the candidates are rescored on the host from the
+f32 memmap, whose rows are never uploaded. Sparse vectors are served by
+index/sparse.py. Sealing builds no graph in this port.
 
-Not ported yet, and refused rather than served differently: sparse vectors,
-multivectors and quantization of an on-disk vector (the quantized-primary
-tier) raise NotImplementedError when a segment with such a config is
-created, and a search that the JAX engine would send to an HNSW graph
+Not ported yet, and refused rather than served differently: multivectors
+raise NotImplementedError when a segment with such a config is created, and
+a search that the JAX engine would send to an HNSW graph
 (`params.hnsw_ef` on a sealed segment) raises too. The on-disk format is the
 JAX package's; loading a JAX-written segment keeps its graph files on disk
 and listed in segment.json untouched.
@@ -44,6 +47,7 @@ from ..types import (
     PayloadIndexParams,
     PointId,
     ProductQuantizationConfig,
+    SparseVector,
     ScalarQuantizationConfig,
     TurboQuantizationConfig,
     VectorParams,
@@ -52,6 +56,7 @@ from ..utils import hw_counter
 from ..utils.budget import BUDGET
 
 from ..index.plain import PlainIndex, fetch_to_host, finalize_device_result
+from ..index.sparse import SparseIndex, SparseVectorStore
 from .vectors import DenseVectorStore
 
 
@@ -120,24 +125,14 @@ _NOT_PORTED = "not ported to qdrant_tpu_torch yet (ROADMAP.md queue 1, item {})"
 
 def refuse_unported(params: CollectionParams) -> None:
     """Raise NotImplementedError for a config the port cannot serve yet."""
-    if params.sparse_vectors:
-        raise NotImplementedError("sparse vectors are " + _NOT_PORTED.format("2: sparse"))
     for name, vp in params.vectors.items():
         _refuse_vector(name, vp)
 
 
-_NOT_PORTED_TIER = (
-    "the quantized-primary tier (quantization of an on-disk vector) is "
-    + _NOT_PORTED.format("1: quantized-primary tier")
-)
-
-
 def _refuse_vector(name: str, vp: VectorParams) -> None:
-    if vp.quantization_config is not None and vp.on_disk:
-        raise NotImplementedError(f"vector {name!r}: " + _NOT_PORTED_TIER)
     if vp.multivector_config is not None:
         raise NotImplementedError(
-            f"multivector {name!r} is " + _NOT_PORTED.format("3: graph and multivector")
+            f"multivector {name!r} is " + _NOT_PORTED.format("1: graph and multivector")
         )
 
 
@@ -190,7 +185,8 @@ class Segment:
         self.dense: Dict[str, DenseVectorStore] = {}
         # index kinds not ported yet stay empty; the shell above reads them
         self.multi: Dict[str, Any] = {}
-        self.sparse: Dict[str, Any] = {}
+        self.sparse: Dict[str, SparseVectorStore] = {}
+        self.sparse_index: Dict[str, SparseIndex] = {}
         self.hnsw: Dict[str, Any] = {}
         self.hnsw_multi: Dict[str, Any] = {}
         self.hnsw_blocks: Dict[str, Any] = {}
@@ -202,6 +198,9 @@ class Segment:
             self.dense[name] = DenseVectorStore(
                 vp.size, vp.distance, vp.datatype, on_disk=vp.on_disk
             )
+        for name, sp in params.sparse_vectors.items():
+            self.sparse[name] = SparseVectorStore()
+            self.sparse_index[name] = SparseIndex(self.sparse[name], sp.modifier)
         self.payload_index = StructPayloadIndex(
             self.payload_storage, self.id_tracker, self._has_vector
         )
@@ -213,7 +212,7 @@ class Segment:
     def add_vector_name(self, name: str, vp: VectorParams) -> None:
         """Add a named dense vector to a live segment: existing points get
         deleted placeholder rows (the lockstep-offset scheme)."""
-        if name in self.dense:
+        if name in self.dense or name in self.sparse:
             return  # idempotent: WAL replay re-applies the op after load
         _refuse_vector(name, vp)
         self.params.vectors[name] = vp
@@ -244,6 +243,9 @@ class Segment:
 
         parts = {
             "dense": merge(*(sizeof(s) for s in self.dense.values())),
+            "sparse_index": merge(
+                *(sizeof(i) for i in self.sparse_index.values())
+            ),
             "quantized": merge(*(sizeof(q) for q in self.quantized.values())),
             "payload_index": sizeof(self.payload_index),
             "payload_storage": sizeof(self.payload_storage),
@@ -256,11 +258,18 @@ class Segment:
     @property
     def total_offsets(self) -> int:
         """Upper bound on internal offsets (including deleted slots)."""
-        return max((len(s) for s in self.dense.values()), default=0)
+        counts = [len(s) for s in self.dense.values()] + [
+            len(s) for s in self.sparse.values()
+        ]
+        return max(counts, default=0)
 
     def _has_vector(self, name: str, offset: int) -> bool:
-        store = self.dense.get(name)
-        return store is not None and offset < len(store) and not store.is_deleted(offset)
+        if name in self.dense:
+            store = self.dense[name]
+            return offset < len(store) and not store.is_deleted(offset)
+        if name in self.sparse:
+            return not self.sparse[name].is_deleted(offset)
+        return False
 
     def available_point_count(self) -> int:
         return len(self.id_tracker)
@@ -306,6 +315,18 @@ class Segment:
                 # keep offsets aligned across stores: a deleted placeholder
                 off = store.add(np.zeros((1, store.dim), dtype=np.float32))[0]
                 store.delete(off)
+        for name, store in self.sparse.items():
+            vec = vectors.get(name)
+            if vec is not None:
+                sv = vec if isinstance(vec, SparseVector) else SparseVector.from_dict(vec)
+                if internal is None:
+                    store.add([sv])
+                else:
+                    store.set(internal, sv)
+                self.sparse_index[name].invalidate()
+            elif internal is None:
+                store.add([SparseVector([], [])])
+                store.delete(len(store) - 1)
         self.id_tracker.link(external_id, new_offset, op_num)
         if deferred:
             self.deferred.add(new_offset)
@@ -345,6 +366,13 @@ class Segment:
                 offs = store.add(np.zeros((n, store.dim), dtype=np.float32))
                 for off in offs:
                     store.delete(int(off))
+        for name, store in self.sparse.items():
+            store.add_flat(
+                np.zeros(n, dtype=np.int64),
+                np.zeros(0, dtype=np.int64),
+                np.zeros(0, dtype=np.float32),
+            )
+            self.sparse_index[name].invalidate()
         self.id_tracker.bulk_link_fresh(list(ids), start, op_num)
         if payloads is not None:
             for i, payload in enumerate(payloads):
@@ -365,6 +393,9 @@ class Segment:
             return False
         for store in self.dense.values():
             store.delete(internal)
+        for name, store in self.sparse.items():
+            if store.delete(internal):
+                self.sparse_index[name].invalidate()
         self.payload_index.remove_point(internal)
         self.payload_storage.clear(internal)
         self.version = max(self.version, op_num)
@@ -381,6 +412,10 @@ class Segment:
         for name, vec in vectors.items():
             if name in self.dense:
                 self.dense[name].set(internal, np.asarray(vec, dtype=np.float32))
+            elif name in self.sparse:
+                sv = vec if isinstance(vec, SparseVector) else SparseVector.from_dict(vec)
+                self.sparse[name].set(internal, sv)
+                self.sparse_index[name].invalidate()
         self.id_tracker.set_version(internal, op_num)
         self.version = max(self.version, op_num)
         return True
@@ -396,6 +431,9 @@ class Segment:
         for name in names:
             if name in self.dense:
                 self.dense[name].delete(internal)
+            elif name in self.sparse:
+                if self.sparse[name].delete(internal):
+                    self.sparse_index[name].invalidate()
         self.id_tracker.set_version(internal, op_num)
         self.version = max(self.version, op_num)
         return True
@@ -479,11 +517,16 @@ class Segment:
         internal = self.id_tracker.internal_id(external_id)
         if internal is None:
             return None
-        return {
+        out: Dict[str, Any] = {
             name: store.get(internal).tolist()
             for name, store in self.dense.items()
             if internal < len(store) and not store.is_deleted(internal)
         }
+        for name, store in self.sparse.items():
+            sv = store.get(internal)
+            if sv is not None:
+                out[name] = sv.to_dict()
+        return out
 
     def filter_mask(self, flt: Optional[Filter]) -> Optional[np.ndarray]:
         return self.payload_index.filter_mask(flt, self.total_offsets)
@@ -630,7 +673,7 @@ class Segment:
             name, combined, fmask is not None, params.hnsw_ef is not None
         ):
             raise NotImplementedError(
-                "HNSW graph search is " + _NOT_PORTED.format("3: graph and multivector")
+                "HNSW graph search is " + _NOT_PORTED.format("1: graph and multivector")
                 + "; pass params.exact=true for the exact scan"
             )
         quant = None if params.quantization_ignore else self.quantized.get(name)
@@ -668,17 +711,22 @@ class Segment:
         mask: np.ndarray,
         params: SearchParams,
     ):
-        """Quantized full scan + oversampled f32 rescore → a device-resident
-        dispatch handle, like PlainIndex's (the JAX engine resolves the same
-        search synchronously; the answers are the same)."""
+        """Quantized full scan + oversampled f32 rescore → a dispatch handle:
+        device-resident like PlainIndex's where the rescore runs on the
+        device, resolved on the host where the vector is `on_disk` (the JAX
+        engine resolves every such search synchronously; the answers are the
+        same)."""
         store = self.dense[name]
-        if store.on_disk:  # a low-memory-mode load moves the f32 rows to disk
-            raise NotImplementedError(f"vector {name!r}: " + _NOT_PORTED_TIER)
         q = preprocess_vectors(queries, store.distance)
         oversampling = params.quantization_oversampling or DEFAULT_OVERSAMPLING
         k_over = min(max(int(k * oversampling), k), max(int(mask.sum()), 1))
-        if isinstance(quant, qops.ScalarQuantized) and len(store) >= FLAT_SCAN_MIN_N:
-            return self._search_sq_kernel(quant, store, q, k, k_over, mask, params)
+        if len(store) >= FLAT_SCAN_MIN_N:
+            if isinstance(quant, qops.ScalarQuantized):
+                if not store.on_disk:
+                    return self._search_sq_kernel(quant, store, q, k, k_over, mask, params)
+                return ("host", self._search_sq_tier(quant, store, q, k, k_over, mask, params))
+            if isinstance(quant, qops.TurboQuantized) and store.on_disk:
+                return ("host", self._search_tq_tier(quant, store, q, k, k_over, mask, params))
         dev = default_device()
         distance = store.distance.value
 
@@ -718,11 +766,119 @@ class Segment:
         top_scores, top_ids = torch.topk(scores, k_over, dim=1)
         if not params.quantization_rescore:
             return ("dev", (top_scores[:, :kk], top_ids[:, :kk], b, kk), k)
+        if store.on_disk:
+            # quantized-primary tier: the exact rescore gathers candidate
+            # rows from the host memmap — the f32 block never enters the card
+            return ("host", self._host_rescore(store, q, _candidates(top_scores, top_ids), k))
         vectors, _ = store.device_block()
         cand = torch.where(torch.isfinite(top_scores), top_ids, -1)
         re_scores = score_ids_batch(torch.from_numpy(q).to(dev), vectors, cand, distance)
         re_top, re_idx = torch.topk(re_scores, kk, dim=1)
         return ("dev", (re_top, torch.gather(cand, 1, re_idx), b, kk), k)
+
+    def _host_rescore(
+        self, store, q: np.ndarray, cand: np.ndarray, k: int
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        """Exact f32 rescore of per-query candidates by gathering their rows
+        from the HOST tier (disk memmap) — the quantized-primary path's
+        second stage (reference: on-disk original vectors + always_ram
+        quantized codes, vector_storage/quantized/quantized_vectors.rs:52).
+        Scores use the engine's exact conventions (-(q-v)^2 / dot; Manhattan
+        is true L1 here, while the scan ranked by squared L2)."""
+        b = q.shape[0]
+        cand = np.asarray(cand, dtype=np.int32)
+        n = len(store)
+        dist = store.distance
+        # one stacked gather + one BLAS pass for the whole batch
+        c = cand.shape[1]
+        valid = (cand >= 0) & (cand < n)
+        safe = np.where(valid, cand, 0)
+        rows = np.asarray(
+            store.get_batch(safe.ravel()), dtype=np.float32
+        ).reshape(b, c, -1)
+        if dist is Distance.EUCLID:
+            d = rows - q[:, None, :]
+            sc = -np.einsum("bcd,bcd->bc", d, d)
+        elif dist is Distance.MANHATTAN:
+            sc = -np.abs(rows - q[:, None, :]).sum(axis=2)
+        else:
+            sc = np.einsum("bcd,bd->bc", rows, q)
+        sc = np.where(valid, sc, -np.inf)
+        kk = min(k, c)
+        part = np.argpartition(-sc, kk - 1, axis=1)[:, :kk]
+        psc = np.take_along_axis(sc, part, axis=1)
+        order = np.argsort(-psc, axis=1, kind="stable")
+        top = np.take_along_axis(part, order, axis=1)
+        s_out = np.full((b, k), -np.inf, dtype=np.float32)
+        i_out = np.full((b, k), -1, dtype=np.int32)
+        s_out[:, :kk] = np.take_along_axis(sc, top, axis=1)
+        i_out[:, :kk] = np.take_along_axis(cand, top, axis=1)
+        i_out[:, :kk] = np.where(
+            np.isfinite(s_out[:, :kk]), i_out[:, :kk], -1
+        )
+        return s_out, i_out
+
+    def _search_sq_tier(
+        self, quant, store, q: np.ndarray, k: int, k_over: int,
+        mask: np.ndarray, params: SearchParams,
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        """SQ over an `on_disk` vector at FLAT_SCAN_MIN_N rows or more: the
+        torch int8 block scan over the codes (the only device residency of
+        the vector; the JAX engine keeps this tier off its Pallas kernel),
+        then an exact rescore from the host memmap, or codes-only scores
+        when `rescore` is off."""
+        from ..ops.scan import DEFAULT_BLOCK, scan_search_sq_flat
+
+        codes_dev, norms_dev, n_pad = quant.scan_device(DEFAULT_BLOCK)
+        dev = codes_dev.device
+        mask_pad = np.zeros(n_pad, dtype=bool)
+        mask_pad[: len(mask)] = mask[:n_pad]
+        # group reduction keeps one winner per 128 rows — widen the
+        # candidate set so the f32 rescore recovers full recall
+        k_over = min(max(k_over, 128), max(int(mask.sum()), 1))
+        top_s, top_i = scan_search_sq_flat(
+            torch.from_numpy(quant.encode_queries(q)).to(dev),
+            torch.from_numpy((q * q).sum(axis=1).astype(np.float32)).to(dev),
+            codes_dev, norms_dev, quant.scale,
+            torch.from_numpy(mask_pad).to(dev),
+            DEFAULT_BLOCK, k_over,
+            euclid=store.distance in (Distance.EUCLID, Distance.MANHATTAN),
+        )
+        if params.quantization_rescore:
+            return self._host_rescore(store, q, _candidates(top_s, top_i), k)
+        [(s, i)] = fetch_to_host([(top_s[:, :k], top_i[:, :k])])
+        return s, np.where(np.isfinite(s), i, -1)
+
+    def _search_tq_tier(
+        self, quant, store, q: np.ndarray, k: int, k_over: int,
+        mask: np.ndarray, params: SearchParams,
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        """TQ-as-primary tier (reference: vector_storage/turbo/mod.rs:1-29):
+        packed low-bit codes are the ONLY device residency (bits/8 bytes per
+        rotated dim); candidates rescore exactly from the host f32 memmap,
+        or keep their codes-only scores when `rescore` is off."""
+        from ..ops.scan import DEFAULT_BLOCK, scan_search_tq_flat
+
+        packed, scales_d, norms_d, levels_d, n_pad = quant.flat_device(DEFAULT_BLOCK)
+        dev = packed.device
+        mask_pad = np.zeros(n_pad, dtype=bool)
+        mask_pad[: len(mask)] = mask[:n_pad]
+        k_over = min(max(k_over, 128), max(int(mask.sum()), 1))
+        top_s, top_i = scan_search_tq_flat(
+            torch.from_numpy(quant.rotate_queries(q)).to(dev),
+            torch.from_numpy((q * q).sum(axis=1).astype(np.float32)).to(dev),
+            packed, scales_d, norms_d, levels_d,
+            torch.from_numpy(mask_pad).to(dev),
+            DEFAULT_BLOCK, k_over,
+            euclid=store.distance in (Distance.EUCLID, Distance.MANHATTAN),
+            pack=quant.pack_factor,
+            bits_w={4: 4, 2: 2, 1.5: 2, 1: 1}[quant.bits],
+        )
+        [(s, i)] = fetch_to_host([(top_s, top_i)])
+        cand = np.where(np.isfinite(s), i, -1)
+        if not params.quantization_rescore:
+            return s[:, :k], cand[:, :k]
+        return self._host_rescore(store, q, cand, k)
 
     def _search_sq_kernel(
         self, quant, store, q: np.ndarray, k: int, k_over: int,
@@ -777,6 +933,35 @@ class Segment:
                 s = torch.where(i >= 0, s - torch.from_numpy(q_sq).to(dev), -np.inf)
         return ("dev", (s, i, b, kk), k)
 
+    @_with_search_budget
+    def search_sparse(
+        self,
+        name: str,
+        queries: List[SparseVector],
+        k: int,
+        flt: Optional[Filter] = None,
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        fmask = self.filter_mask(flt)
+        alive = self.alive_mask()
+        combined = alive if fmask is None else (alive & fmask)
+        return self.sparse_index[name].search(queries, k, filter_mask=combined)
+
+    def search_sparse_many(
+        self,
+        name: str,
+        batches: List[List[SparseVector]],
+        k: int,
+        flt: Optional[Filter] = None,
+    ) -> List[Tuple[np.ndarray, np.ndarray]]:
+        """Pipelined multi-batch sparse search (one device sync per window;
+        index/sparse.py::SparseIndex.search_many)."""
+        fmask = self.filter_mask(flt)
+        alive = self.alive_mask()
+        combined = alive if fmask is None else (alive & fmask)
+        return self.sparse_index[name].search_many(
+            batches, k, filter_mask=combined
+        )
+
     # ------------------------------------------------------------------
     # seal
     # ------------------------------------------------------------------
@@ -785,9 +970,10 @@ class Segment:
         """Seal the segment. No graph is built: the exact scan serves every
         search this port accepts. A vector with a quantization config is
         encoded as the JAX seal encodes it, and its codes are uploaded (SQ
-        at FLAT_SCAN_MIN_N rows or more in the fused scan's int8 layout);
-        any other vector uploads its bf16 scan block. Either way the first
-        search after sealing pays no upload of what it scans."""
+        at FLAT_SCAN_MIN_N rows or more in the fused scan's int8 layout; of
+        an `on_disk` vector in the torch scans' layout, its f32 rows staying
+        in the memmap); any other vector uploads its bf16 scan block. Either
+        way the first search after sealing pays no upload of what it scans."""
         from ..index.plain import SCAN_THRESHOLD
         from ..ops.fused_scan import DEFAULT_BLK
 
@@ -804,10 +990,7 @@ class Segment:
                 continue
             quant = _encode(qc, store.host_array)
             self.quantized[name] = quant
-            if isinstance(quant, qops.ScalarQuantized) and len(store) >= FLAT_SCAN_MIN_N:
-                quant.kernel_device(DEFAULT_BLK)
-            else:
-                quant.device()
+            _upload_codes(quant, store, DEFAULT_BLK)
         self.appendable = False
 
     # ------------------------------------------------------------------
@@ -844,6 +1027,8 @@ class Segment:
         self.payload_storage.save(path)
         for name, store in self.dense.items():
             store.save(os.path.join(path, f"dense_{_safe(name)}"))
+        for name, store in self.sparse.items():
+            store.save(os.path.join(path, f"sparse_{_safe(name)}"))
         for name, q in self.quantized.items():
             q.save(os.path.join(path, f"quant_{_safe(name)}"))
 
@@ -870,6 +1055,10 @@ class Segment:
                     sub, vp.size, vp.distance, vp.datatype,
                     on_disk=vp.on_disk or _LOW_MEMORY_MODE != "disabled",
                 )
+        for name, sp in params.sparse_vectors.items():
+            sub = os.path.join(path, f"sparse_{_safe(name)}")
+            seg.sparse[name] = SparseVectorStore.load(sub)
+            seg.sparse_index[name] = SparseIndex(seg.sparse[name], sp.modifier)
         seg.payload_index = StructPayloadIndex(
             seg.payload_storage, seg.id_tracker, seg._has_vector
         )
@@ -888,6 +1077,30 @@ class Segment:
             for store in seg.dense.values():
                 store.drop_device()
         return seg
+
+
+def _candidates(top_scores: torch.Tensor, top_ids: torch.Tensor) -> np.ndarray:
+    """Device (scores, ids) of a quantized scan → host candidate ids [B, C]
+    int32, -1 where the score is not finite."""
+    [(s, i)] = fetch_to_host([(top_scores, top_ids)])
+    return np.where(np.isfinite(s), i, -1)
+
+
+def _upload_codes(quant, store: DenseVectorStore, kernel_block: int) -> None:
+    """Put a sealed vector's codes on the device in the layout its searches
+    scan (Segment._search_quantized picks by the same conditions)."""
+    from ..ops.scan import DEFAULT_BLOCK
+
+    big = len(store) >= FLAT_SCAN_MIN_N
+    if big and isinstance(quant, qops.ScalarQuantized):
+        if store.on_disk:
+            quant.scan_device(DEFAULT_BLOCK)
+        else:
+            quant.kernel_device(kernel_block)
+    elif big and store.on_disk and isinstance(quant, qops.TurboQuantized):
+        quant.flat_device(DEFAULT_BLOCK)
+    else:
+        quant.device()
 
 
 def _safe(name: str) -> str:

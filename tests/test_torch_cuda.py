@@ -203,3 +203,171 @@ def test_merge_kernel_matches_plain(cuda):
     torch.cuda.synchronize()
     assert fs.merge_survivors.launches == before + 1
     assert torch.equal(ks, ps) and torch.equal(ki, pi)
+
+
+# ---------------------------------------------------------------------------
+# The torch programs of the quantized-primary tier and of sparse search: the
+# same function on `cuda` and on `cpu`, same inputs. Tolerances: int8 scores
+# equal (exact integer sums rounded once); f32 scores within 1e-5 relative
+# (another summation order); ids equal wherever scores are further apart.
+# ---------------------------------------------------------------------------
+
+
+def _same_candidates(s_a, i_a, s_b, i_b, rtol):
+    """Scores agree within rtol, position by position; the id sets agree
+    except for ids tied (within rtol) with the last kept score, which either
+    side may keep. The order among equal scores is free."""
+    s_a, i_a, s_b, i_b = (t.cpu().numpy() for t in (s_a, i_a, s_b, i_b))
+    np.testing.assert_allclose(s_a, s_b, rtol=rtol, atol=0)
+    for row in range(s_a.shape[0]):
+        score = {**dict(zip(i_a[row].tolist(), s_a[row])),
+                 **dict(zip(i_b[row].tolist(), s_b[row]))}
+        hits_a = set(i_a[row][np.isfinite(s_a[row])].tolist())  # -inf = no hit
+        hits_b = set(i_b[row][np.isfinite(s_b[row])].tolist())
+        last = s_b[row][np.isfinite(s_b[row])].min(initial=np.inf)
+        for pid in hits_a ^ hits_b:
+            assert abs(score[pid] - last) <= rtol * abs(last), (row, pid, score[pid], last)
+
+
+@pytest.mark.parametrize("euclid", [False, True])
+def test_sq_scan_on_card_equals_cpu(cuda, euclid):
+    from qdrant_tpu_torch.ops import scan
+
+    rng = np.random.default_rng(3)
+    n, d = 8192 * 5, 104
+    codes = torch.from_numpy(rng.integers(-127, 128, (n, d), dtype=np.int8))
+    q = torch.from_numpy(rng.integers(-127, 128, (5, 100), dtype=np.int8))
+    norms = torch.from_numpy(rng.random(n).astype(np.float32) * 50)
+    qn = torch.from_numpy(rng.random(5).astype(np.float32) * 50)
+    mask = torch.from_numpy((rng.random(n) > 0.1).astype(np.int8))
+    args = (q, qn, codes, norms, 0.0123, mask)
+    ref = scan.scan_search_sq_flat(*args, k=200, euclid=euclid)
+    got = scan.scan_search_sq_flat(
+        *(a.to(cuda) if isinstance(a, torch.Tensor) else a for a in args),
+        k=200, euclid=euclid)
+    assert got[0].device.type == cuda.type
+    _same_candidates(*got, *ref, rtol=0.0)
+
+
+def test_sq_scan_peak_memory_is_the_codes(cuda):
+    """No second copy of the codes: peak memory of a scan stays under the
+    codes + 10%."""
+    from qdrant_tpu_torch.ops import scan
+
+    n, d = 262_144, 1536
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    codes = torch.randint(-127, 128, (n, d), generator=gen, device=cuda, dtype=torch.int8)
+    q = torch.randint(-127, 128, (8, d), generator=gen, device=cuda, dtype=torch.int8)
+    norms = torch.zeros(n, device=cuda)
+    mask = torch.ones(n, dtype=torch.int8, device=cuda)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    s, i = scan.scan_search_sq_flat(q, torch.zeros(8, device=cuda), codes, norms, 0.01,
+                                    mask, k=128)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - base
+    assert extra <= 0.10 * codes.numel(), (extra, codes.numel())
+    assert int((i >= 0).sum()) == 8 * 128
+
+
+@pytest.mark.parametrize("bits,pack,bits_w", [(4, 2, 4), (2, 4, 2), (1, 8, 1)])
+def test_tq_scan_on_card_equals_cpu(cuda, bits, pack, bits_w):
+    from qdrant_tpu_torch.ops import quantization as qops
+    from qdrant_tpu_torch.ops import scan
+
+    rng = np.random.default_rng(4)
+    n, d_pad = 8192 * 3, 256
+    packed = torch.from_numpy(rng.integers(0, 256, (n, d_pad // pack), dtype=np.uint8))
+    levels = torch.from_numpy(qops._lloyd_max(bits)[1].astype(np.float32))
+    args = (
+        torch.from_numpy(rng.standard_normal((6, d_pad)).astype(np.float32)),
+        torch.from_numpy(rng.random(6).astype(np.float32)),
+        packed,
+        torch.from_numpy(rng.random(n).astype(np.float32) + 0.5),
+        torch.from_numpy(rng.random(n).astype(np.float32)),
+        levels,
+        torch.from_numpy((rng.random(n) > 0.1).astype(np.int8)),
+    )
+    for euclid in (False, True):
+        ref = scan.scan_search_tq_flat(*args, k=150, euclid=euclid, pack=pack, bits_w=bits_w)
+        got = scan.scan_search_tq_flat(*(a.to(cuda) for a in args), k=150, euclid=euclid,
+                                       pack=pack, bits_w=bits_w)
+        _same_candidates(*got, *ref, rtol=1e-5)
+
+
+def test_tf32_is_refused(cuda):
+    from qdrant_tpu_torch.device import require_exact_f32_matmul
+
+    t = torch.zeros(1, device=cuda)
+    require_exact_f32_matmul(t)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with pytest.raises(RuntimeError, match="TF32"):
+            require_exact_f32_matmul(t)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    assert torch.get_float32_matmul_precision() == "highest"
+
+
+def _zipf_rows(rng, n, vocab, nnz):
+    p = 1.0 / np.arange(1, vocab + 1) ** 0.9
+    p /= p.sum()
+    rows = []
+    for _ in range(n):
+        t = np.unique(rng.choice(vocab, size=nnz, p=p))
+        w = np.abs(rng.normal(1.0, 0.5, size=len(t))).astype(np.float32) + 0.01
+        rows.append((t.tolist(), w.tolist()))
+    return rows
+
+
+def test_sparse_programs_on_card_equal_cpu(cuda, monkeypatch):
+    """The hybrid search, the legacy windowed search and its forward-row
+    rescore, and the hot-matrix build: the index runs them on the card; the
+    captured operands, copied to the CPU, go through the same functions."""
+    from qdrant_tpu_torch.index import sparse as index_sparse
+    from qdrant_tpu_torch.index.sparse import SparseIndex, SparseVectorStore
+    from qdrant_tpu_torch.ops import sparse as ops
+    from qdrant_tpu_torch.types import SparseVector
+
+    rng = np.random.default_rng(5)
+    store = SparseVectorStore()
+    store.add([SparseVector(*r) for r in _zipf_rows(rng, 6000, 500, 12)])
+    queries = [SparseVector(*r) for r in _zipf_rows(rng, 9, 520, 8)]
+    real = {name: getattr(ops, name) for name in (
+        "sparse_hybrid_search", "sparse_search", "rescore_sparse_packed", "build_hot_matrix")}
+    calls = {}
+
+    def spy(name):
+        def run(*args):
+            out = real[name](*args)
+            calls[name] = (args, out)
+            return out
+        return run
+
+    for name in real:
+        monkeypatch.setattr(ops, name, spy(name))
+    # the index binds sparse_search when it is imported
+    monkeypatch.setattr(index_sparse, "sparse_search", spy("sparse_search"))
+    monkeypatch.setenv("QDRANT_TPU_SPARSE_HOT_BYTES", str(4 * 8192 * 128))
+    index = SparseIndex(store)
+    assert index._hybrid_ready() and index._hot[0].device.type == cuda.type
+    index.search(queries, 10)
+    monkeypatch.setenv("QDRANT_TPU_SPARSE_HOT_MAX", "0")
+    legacy = SparseIndex(store)
+    assert not legacy._hybrid_ready()
+    legacy.search(queries, 10, window=64)
+    assert set(calls) == set(real)
+
+    def on_cpu(v):
+        return v.cpu() if isinstance(v, torch.Tensor) else v
+
+    for name, (args, out) in calls.items():
+        cpu_args = [on_cpu(a) for a in args]
+        if name == "build_hot_matrix":  # filled in place: start from zeros again
+            cpu_args[4] = torch.zeros_like(cpu_args[4])
+        ref = real[name](*cpu_args)
+        if isinstance(out, tuple):
+            _same_candidates(*out, *ref, rtol=1e-5)
+        else:
+            np.testing.assert_allclose(out.cpu().numpy(), ref.numpy(), rtol=1e-5, atol=0)

@@ -2,8 +2,9 @@
 
 * qdrant_tpu_torch runs with jax and qdrant_tpu made unimportable: a
   subprocess blocks both, serves REST over a TableOfContent on the CPU and
-  runs a search; no import of either was even attempted, and no qdrant_tpu
-  module is loaded afterwards.
+  runs a dense, a tiered (quantized, on-disk rows) and a sparse search; no
+  import of either was even attempted, and no qdrant_tpu module is loaded
+  afterwards.
 * No source file of the port (nor chip_smoke.py) imports jax or qdrant_tpu.
 * The modules copied from qdrant_tpu (the REST / collection shell, and the
   jax-free modules the port shares with the reference unchanged) equal their
@@ -57,6 +58,26 @@ call("PUT", "/collections/g/points?wait=true", {"points": [
     {"id": i, "vector": [float(i), 0.0, 0.0, 1.0]} for i in range(20)]})
 hits = call("POST", "/collections/g/points/search", {"vector": [3.1, 0, 0, 1], "limit": 2})
 assert [h["id"] for h in hits] == [3, 4], hits
+# a tiered collection (codes on the device, f32 rows on disk), sealed
+call("PUT", "/collections/t", {"vectors": {"size": 4, "distance": "Dot", "on_disk": True,
+     "quantization_config": {"scalar": {"type": "int8"}}},
+     "optimizers_config": {"indexing_threshold": 30}})
+call("PUT", "/collections/t/points?wait=true", {"points": [
+    {"id": i, "vector": [float(i), 1.0, 0.0, 0.0]} for i in range(40)]})
+seg, = [s for s in toc.get_collection("t").shards[0].segments if not s.appendable]
+assert "" in seg.quantized and seg.dense[""].on_disk
+hits = call("POST", "/collections/t/points/search", {"vector": [1.0, 0, 0, 0], "limit": 2})
+assert [h["id"] for h in hits] == [39, 38], hits
+assert seg.dense[""]._dev is None
+# a sparse collection
+call("PUT", "/collections/s", {"vectors": {"size": 4, "distance": "Dot"},
+     "sparse_vectors": {"text": {}}})
+call("PUT", "/collections/s/points?wait=true", {"points": [
+    {"id": i, "vector": {"": [1.0, 0, 0, 0], "text": {"indices": [i % 5, 7], "values": [1.0 + i, 0.5]}}}
+    for i in range(20)]})
+hits = call("POST", "/collections/s/points/query",
+            {"query": {"indices": [4], "values": [2.0]}, "using": "text", "limit": 2})["points"]
+assert [h["id"] for h in hits] == [19, 14] and hits[0]["score"] == 40.0, hits
 call("GET", "/telemetry?details_level=3")
 call("GET", "/openapi.json")
 srv.shutdown()
@@ -156,6 +177,7 @@ COPIED = [
     "collection/hash_ring.py",
     "collection/sampling.py",
     "index/payload_index.py",
+    "index/postings.py",
     "native/__init__.py",
     "native/wal.cpp",
     "native/gridstore.cpp",
@@ -189,9 +211,9 @@ def test_copied_shell_equals_original(rel):
 
 # modules the port rewrote for torch (not copies), and empty package markers
 PORTED = {
-    "__init__.py", "__main__.py", "index/plain.py", "ops/distances.py",
-    "ops/quantization.py", "ops/scan.py", "storage/segment.py",
-    "storage/vectors.py", "utils/telemetry.py",
+    "__init__.py", "__main__.py", "index/plain.py", "index/sparse.py",
+    "ops/distances.py", "ops/quantization.py", "ops/scan.py", "ops/sparse.py",
+    "storage/segment.py", "storage/vectors.py", "utils/telemetry.py",
 }
 
 

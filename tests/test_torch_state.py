@@ -166,13 +166,10 @@ def test_jax_graph_files_stay_untouched(tmp_path, monkeypatch):
 @pytest.mark.parametrize(
     "spec",
     [
-        {"vectors": {"size": 4, "distance": "Dot"}, "sparse_vectors": {"text": {}}},
         {"vectors": {"size": 4, "distance": "Dot",
                      "multivector_config": {"comparator": "max_sim"}}},
-        {"vectors": {"size": 4, "distance": "Dot", "on_disk": True,
-                     "quantization_config": {"scalar": {"type": "int8"}}}},
     ],
-    ids=["sparse", "multivector", "quantization"],
+    ids=["multivector"],
 )
 def test_unported_configs_are_refused_at_creation(tmp_path, spec):
     toc = TableOfContent(str(tmp_path))
