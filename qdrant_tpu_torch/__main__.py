@@ -34,7 +34,7 @@ def main(argv=None) -> int:
     if args.uri or args.bootstrap:
         parser.error(
             "cluster mode (--uri / --bootstrap) is not ported to qdrant_tpu_torch "
-            "yet (ROADMAP.md queue 1, item 6: cluster); run `python -m qdrant_tpu` "
+            "yet (ROADMAP.md queue 1, item 4: cluster); run `python -m qdrant_tpu` "
             "for a cluster peer"
         )
 

@@ -12,7 +12,9 @@ is the `quant_*/` directory a JAX-written segment already holds: the tier's
 device layouts (`scan_device`, `flat_device`) are derived from the carried
 codes on first use. `sparse_index_from_jax` carries a JAX sparse store's rows
 across as flat numpy arrays, where the main route is the `sparse_*/`
-directory.
+directory. `hnsw_index_from_jax` carries a built JAX graph (levels, rank,
+entry and both link tables) across as numpy arrays, where the main route is
+the `hnsw_*/` directory, so both packages can search the same graph.
 """
 
 from __future__ import annotations
@@ -23,10 +25,13 @@ import numpy as np
 import torch
 
 from .device import default_device
+from .index.hnsw import HnswIndex
 from .index.sparse import SparseIndex, SparseVectorStore
 from .ops import quantization as qops
 from .ops.fused_scan import DEFAULT_BLK
 from .ops.scan import ScanIndex
+from .storage.vectors import DenseVectorStore
+from .types import HnswConfig
 
 
 def scan_index_from_jax(
@@ -96,3 +101,24 @@ def sparse_index_from_jax(index) -> SparseIndex:
     for off in np.flatnonzero(~live):
         store.delete(int(off))
     return SparseIndex(store, index.modifier)
+
+
+def hnsw_index_from_jax(index, store: DenseVectorStore) -> HnswIndex:
+    """The port's HnswIndex over `store` (the port's store of the same rows)
+    holding the graph of a built JAX `HnswIndex`: levels, rank, entry,
+    max_level, level_counts and both link tables cross as numpy arrays
+    (reading `links0` / `links_upper` downloads a device-built adjacency)."""
+    out = HnswIndex(
+        store, HnswConfig.from_dict(index.config.to_dict()), seed=index.seed,
+        subset=None if index.subset is None else np.asarray(index.subset),
+    )
+    out.levels = np.array(index.levels, dtype=np.int32)
+    out.rank = np.array(index.rank, dtype=np.int32)
+    out.entry = int(index.entry)
+    out.max_level = int(index.max_level)
+    out.level_counts = {int(k): int(v) for k, v in index.level_counts.items()}
+    out.links0 = np.array(index.links0, dtype=np.int32)
+    out.counts0 = np.array(index.counts0, dtype=np.int32)
+    out.links_upper = np.array(index.links_upper, dtype=np.int32)
+    out.counts_upper = np.array(index.counts_upper, dtype=np.int32)
+    return out

@@ -119,3 +119,25 @@ def score_ids_batch(
     else:  # pragma: no cover
         raise ValueError(f"unknown distance {distance}")
     return torch.where(ids >= 0, scores, NEG_INF)
+
+
+def pairwise_scores(
+    a: torch.Tensor,  # [B, Ka, D]
+    b: torch.Tensor,  # [B, Kb, D]
+    distance: str,
+) -> torch.Tensor:
+    """Batched pairwise scores [B, Ka, Kb] — used by the HNSW build heuristic."""
+    dist = Distance(distance)
+    a32 = a.float()
+    b32 = b.float()
+    if dist in (Distance.DOT, Distance.COSINE):
+        return torch.bmm(a32, b32.transpose(1, 2))
+    if dist is Distance.EUCLID:
+        ab = torch.bmm(a32, b32.transpose(1, 2))
+        a_sq = (a32 * a32).sum(dim=-1)  # [B, Ka]
+        b_sq = (b32 * b32).sum(dim=-1)  # [B, Kb]
+        return 2.0 * ab - a_sq[:, :, None] - b_sq[:, None, :]
+    if dist is Distance.MANHATTAN:
+        diff = a32[:, :, None, :] - b32[:, None, :, :]
+        return -diff.abs().sum(dim=-1)
+    raise ValueError(f"unknown distance {distance}")  # pragma: no cover

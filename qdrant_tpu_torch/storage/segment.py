@@ -12,14 +12,16 @@ vector is the quantized-primary tier: only its codes live on the device
 (scanned by the torch scans of ops/scan.py, as the JAX engine keeps this tier
 off its Pallas kernel) and the candidates are rescored on the host from the
 f32 memmap, whose rows are never uploaded. Sparse vectors are served by
-index/sparse.py. Sealing builds no graph in this port.
+index/sparse.py. Sealing a resident dense vector builds its HNSW graph
+(index/hnsw.py) and one subgraph per payload block, as the JAX seal does; a
+search takes the graph when `params.hnsw_ef` asks for it (or past the
+crossover row count), a block's subgraph under a matching `must match`
+filter, and the ACORN beam under a selective filter.
 
 Not ported yet, and refused rather than served differently: multivectors
 raise NotImplementedError when a segment with such a config is created, and
-a search that the JAX engine would send to an HNSW graph
-(`params.hnsw_ef` on a sealed segment) raises too. The on-disk format is the
-JAX package's; loading a JAX-written segment keeps its graph files on disk
-and listed in segment.json untouched.
+a mesh-sharded graph directory when it is loaded. The on-disk format is the
+JAX package's.
 """
 
 from __future__ import annotations
@@ -55,6 +57,7 @@ from ..types import (
 from ..utils import hw_counter
 from ..utils.budget import BUDGET
 
+from ..index.hnsw import HnswIndex, load_hnsw_any
 from ..index.plain import PlainIndex, fetch_to_host, finalize_device_result
 from ..index.sparse import SparseIndex, SparseVectorStore
 from .vectors import DenseVectorStore
@@ -74,9 +77,11 @@ def _with_search_budget(fn):
 
 DEFAULT_FULL_SCAN_THRESHOLD = 10_000
 
-# Row count above which the JAX engine sends an unfiltered search to the
-# HNSW graph (qdrant_tpu/storage/segment.py GRAPH_CROSSOVER_ROWS). The port
-# has no graph yet, so a search past it raises.
+# Row count above which a search without `params.hnsw_ef` takes the HNSW
+# graph instead of the exact scan. The value is the JAX engine's
+# (qdrant_tpu/storage/segment.py GRAPH_CROSSOVER_ROWS), an extrapolation from
+# its TPU measurements kept as the dispatch rule; it has not been measured on
+# this port's device.
 GRAPH_CROSSOVER_ROWS = int(
     os.environ.get("QDRANT_TPU_GRAPH_CROSSOVER_ROWS", 258_000_000)
 )
@@ -132,7 +137,7 @@ def refuse_unported(params: CollectionParams) -> None:
 def _refuse_vector(name: str, vp: VectorParams) -> None:
     if vp.multivector_config is not None:
         raise NotImplementedError(
-            f"multivector {name!r} is " + _NOT_PORTED.format("1: graph and multivector")
+            f"multivector {name!r} is " + _NOT_PORTED.format("1b: multivector")
         )
 
 
@@ -187,13 +192,12 @@ class Segment:
         self.multi: Dict[str, Any] = {}
         self.sparse: Dict[str, SparseVectorStore] = {}
         self.sparse_index: Dict[str, SparseIndex] = {}
-        self.hnsw: Dict[str, Any] = {}
-        self.hnsw_multi: Dict[str, Any] = {}
-        self.hnsw_blocks: Dict[str, Any] = {}
+        self.hnsw: Dict[str, HnswIndex] = {}
+        self.hnsw_multi: Dict[str, Any] = {}  # stays empty with multivectors
+        # filterable-HNSW payload-block subgraphs:
+        # vector name → {(field, value_repr): HnswIndex over that block}
+        self.hnsw_blocks: Dict[str, Dict[Tuple[str, str], HnswIndex]] = {}
         self.quantized: Dict[str, Any] = {}  # name → qops.*Quantized (sealed)
-        # segment.json entries for indexes written by the JAX package, kept
-        # as they were so that package still finds its files
-        self._foreign_meta: Dict[str, Any] = {}
         for name, vp in params.vectors.items():
             self.dense[name] = DenseVectorStore(
                 vp.size, vp.distance, vp.datatype, on_disk=vp.on_disk
@@ -229,6 +233,8 @@ class Segment:
             return  # idempotent under WAL replay
         self.params.vectors.pop(name, None)
         self.dense.pop(name, None)
+        self.hnsw.pop(name, None)
+        self.hnsw_blocks.pop(name, None)
         self.quantized.pop(name, None)
 
     # ------------------------------------------------------------------
@@ -247,6 +253,14 @@ class Segment:
                 *(sizeof(i) for i in self.sparse_index.values())
             ),
             "quantized": merge(*(sizeof(q) for q in self.quantized.values())),
+            "hnsw": merge(
+                *(sizeof(h) for h in self.hnsw.values()),
+                *(
+                    sizeof(h)
+                    for blocks in self.hnsw_blocks.values()
+                    for h in blocks.values()
+                ),
+            ),
             "payload_index": sizeof(self.payload_index),
             "payload_storage": sizeof(self.payload_storage),
         }
@@ -669,38 +683,85 @@ class Segment:
             dims=store.dim,
             filter_evals=1 if fmask is not None else 0,
         )
-        if not params.exact and self._would_use_graph(
-            name, combined, fmask is not None, params.hnsw_ef is not None
+        vp = self.params.vectors[name]
+        hnsw = self.hnsw.get(name)
+        ef = params.hnsw_ef or max(k, 64)
+
+        # filterable HNSW: a match-value filter covered by a payload-block
+        # subgraph searches that block's graph directly (same crossover gate
+        # as the main graph: below it the masked scan is exact and faster)
+        if (
+            hnsw is not None
+            and not params.exact
+            and flt is not None
+            and (
+                params.hnsw_ef is not None
+                or len(combined) >= GRAPH_CROSSOVER_ROWS
+            )
         ):
-            raise NotImplementedError(
-                "HNSW graph search is " + _NOT_PORTED.format("1: graph and multivector")
-                + "; pass params.exact=true for the exact scan"
+            for field, vkey in _block_conditions(flt):
+                sub = self.hnsw_blocks.get(name, {}).get((field, vkey))
+                if sub is not None:
+                    return (
+                        "host",
+                        sub.search(queries, k, ef=ef, filter_mask=combined),
+                    )
+
+        use_graph = (
+            hnsw is not None
+            and not params.exact
+            and self._should_use_graph(
+                vp, combined, fmask is not None,
+                explicit_ef=params.hnsw_ef is not None,
+            )
+        )
+        if use_graph:
+            # ACORN dispatch: low-selectivity filters traverse the unfiltered
+            # graph
+            acorn = False
+            if fmask is not None and params.acorn_enable is not False:
+                selectivity = combined.sum() / max(len(combined), 1)
+                acorn = bool(
+                    params.acorn_enable
+                    or selectivity <= params.acorn_max_selectivity
+                )
+            return (
+                "host",
+                hnsw.search(queries, k, ef=ef, filter_mask=combined, acorn=acorn),
             )
         quant = None if params.quantization_ignore else self.quantized.get(name)
         if quant is not None and not params.exact:
             return self._search_quantized(name, quant, queries, k, combined, params)
         return ("dev", PlainIndex(store).search_device(queries, k, combined), k)
 
-    def _would_use_graph(
-        self, name: str, combined_mask: np.ndarray, filtered: bool,
-        explicit_ef: bool,
+    def _should_use_graph(
+        self,
+        vp: VectorParams,
+        combined_mask: np.ndarray,
+        filtered: bool,
+        explicit_ef: bool = False,
     ) -> bool:
-        """True where the JAX engine would search this segment's HNSW graph:
-        the segment is sealed with live rows (the JAX seal builds a graph
-        there) and its cost model (segment.py `_should_use_graph`) picks the
-        graph — an explicit `hnsw_ef`, or more rows than the crossover."""
-        store = self.dense[name]
-        if self.appendable or store.available_count == 0 or store.on_disk:
-            return False
-        vp = self.params.vectors[name]
+        """Cost-model dispatch. Two gates, both scan-favouring:
+
+        * filtered: small filtered cardinality → exact scan of matching
+          points.
+        * unfiltered: below GRAPH_CROSSOVER_ROWS the exact scan serves, so
+          the graph only takes over above it — unless the caller asked for
+          the graph explicitly by setting params.hnsw_ef.
+        """
         threshold = (
             vp.hnsw_config.full_scan_threshold
             if vp.hnsw_config
             else DEFAULT_FULL_SCAN_THRESHOLD
         )
-        if filtered and int(combined_mask.sum()) < threshold:
+        cardinality = int(combined_mask.sum())
+        if filtered and cardinality < threshold:
             return False
-        return explicit_ef or len(combined_mask) >= GRAPH_CROSSOVER_ROWS
+        if explicit_ef:
+            return True
+        # the masked scan scores every row whatever the filter matches, so
+        # the crossover gate is on total rows for both cases
+        return len(combined_mask) >= GRAPH_CROSSOVER_ROWS
 
     def _search_quantized(
         self,
@@ -967,13 +1028,16 @@ class Segment:
     # ------------------------------------------------------------------
 
     def build_indexes(self, default_hnsw: Optional[HnswConfig] = None) -> None:
-        """Seal the segment. No graph is built: the exact scan serves every
-        search this port accepts. A vector with a quantization config is
-        encoded as the JAX seal encodes it, and its codes are uploaded (SQ
-        at FLAT_SCAN_MIN_N rows or more in the fused scan's int8 layout; of
-        an `on_disk` vector in the torch scans' layout, its f32 rows staying
-        in the memmap); any other vector uploads its bf16 scan block. Either
-        way the first search after sealing pays no upload of what it scans."""
+        """Seal the segment. Every resident dense vector with live rows gets
+        its HNSW graph and one subgraph per payload block of at least
+        `full_scan_threshold` points (an `on_disk` vector skips the graph:
+        it would force the f32 block onto the device). A vector with a
+        quantization config is encoded as the JAX seal encodes it, and its
+        codes are uploaded (SQ at FLAT_SCAN_MIN_N rows or more in the fused
+        scan's int8 layout; of an `on_disk` vector in the torch scans'
+        layout, its f32 rows staying in the memmap); any other vector uploads
+        its bf16 scan block. Either way the first search after sealing pays
+        no upload of what it scans."""
         from ..index.plain import SCAN_THRESHOLD
         from ..ops.fused_scan import DEFAULT_BLK
 
@@ -981,6 +1045,25 @@ class Segment:
             store = self.dense.get(name)
             if store is None:
                 continue
+            cfg = vp.hnsw_config or default_hnsw or HnswConfig()
+            if store.available_count > 0 and not store.on_disk:
+                idx = HnswIndex(store, cfg)
+                idx.build()
+                self.hnsw[name] = idx
+                # payload-block subgraphs for filterable search
+                blocks = self.payload_index.payload_blocks(cfg.full_scan_threshold)
+                if blocks:
+                    sub_cfg = HnswConfig(
+                        m=cfg.payload_m or cfg.m,
+                        ef_construct=cfg.ef_construct,
+                        full_scan_threshold=cfg.full_scan_threshold,
+                    )
+                    for field, value, offsets in blocks:
+                        sub = HnswIndex(store, sub_cfg, subset=offsets)
+                        sub.build()
+                        self.hnsw_blocks.setdefault(name, {})[
+                            (field, repr(value))
+                        ] = sub
             qc = vp.quantization_config
             if qc is None:
                 if len(store) >= SCAN_THRESHOLD:  # PlainIndex's own gate
@@ -1008,9 +1091,15 @@ class Segment:
                 k: v.to_dict() for k, v in self.payload_index.indexed_fields().items()
             },
             "deferred": sorted(self.deferred),
-            "hnsw": [],
+            "hnsw": list(self.hnsw.keys()),
             "hnsw_multi": [],
-            "hnsw_blocks": {},
+            "hnsw_blocks": {
+                name: [
+                    [field, vkey, f"hnsw_block_{_safe(name)}_{i}"]
+                    for i, (field, vkey) in enumerate(blocks.keys())
+                ]
+                for name, blocks in self.hnsw_blocks.items()
+            },
             "quantized": {
                 name: type(q).__name__ for name, q in self.quantized.items()
             },
@@ -1019,7 +1108,6 @@ class Segment:
                 if isinstance(self.payload_storage, PayloadStorage)
                 else "gridstore"
             ),
-            **self._foreign_meta,
         }
         with open(os.path.join(path, "segment.json"), "w") as f:
             json.dump(meta, f)
@@ -1029,6 +1117,11 @@ class Segment:
             store.save(os.path.join(path, f"dense_{_safe(name)}"))
         for name, store in self.sparse.items():
             store.save(os.path.join(path, f"sparse_{_safe(name)}"))
+        for name, idx in self.hnsw.items():
+            idx.save(os.path.join(path, f"hnsw_{_safe(name)}"))
+        for name, blocks in self.hnsw_blocks.items():
+            for i, sub in enumerate(blocks.values()):
+                sub.save(os.path.join(path, f"hnsw_block_{_safe(name)}_{i}"))
         for name, q in self.quantized.items():
             q.save(os.path.join(path, f"quant_{_safe(name)}"))
 
@@ -1064,11 +1157,22 @@ class Segment:
         )
         for field, pdict in meta.get("payload_indexes", {}).items():
             seg.payload_index.set_indexed(field, PayloadIndexParams.from_dict(pdict))
-        seg._foreign_meta = {
-            key: meta[key]
-            for key in ("hnsw", "hnsw_multi", "hnsw_blocks")
-            if meta.get(key)
-        }
+        for name in meta.get("hnsw", []):
+            cfg = params.vectors[name].hnsw_config or HnswConfig()
+            seg.hnsw[name] = load_hnsw_any(
+                os.path.join(path, f"hnsw_{_safe(name)}"), seg.dense[name], cfg
+            )
+        for name, blocks in meta.get("hnsw_blocks", {}).items():
+            cfg = params.vectors[name].hnsw_config or HnswConfig()
+            sub_cfg = HnswConfig(
+                m=cfg.payload_m or cfg.m,
+                ef_construct=cfg.ef_construct,
+                full_scan_threshold=cfg.full_scan_threshold,
+            )
+            for field, vkey, dirname in blocks:
+                seg.hnsw_blocks.setdefault(name, {})[(field, vkey)] = HnswIndex.load(
+                    os.path.join(path, dirname), seg.dense[name], sub_cfg
+                )
         for name, qtype in meta.get("quantized", {}).items():
             cls_ = _QUANTIZED_TYPES.get(qtype)
             if cls_ is not None:
@@ -1105,6 +1209,26 @@ def _upload_codes(quant, store: DenseVectorStore, kernel_block: int) -> None:
 
 def _safe(name: str) -> str:
     return name if name else "_default"
+
+
+def _block_conditions(flt: Optional[Filter]):
+    """Yield (field, value_repr) for plain match-value must conditions —
+    candidates for payload-block subgraph dispatch."""
+    if flt is None:
+        return
+    from ..types import FieldCondition, MatchValue
+
+    for cond in flt.must:
+        if (
+            isinstance(cond, FieldCondition)
+            and isinstance(cond.match, MatchValue)
+            and cond.range is None
+            and cond.geo_bounding_box is None
+            and cond.geo_radius is None
+            and cond.geo_polygon is None
+            and cond.values_count is None
+        ):
+            yield cond.key, repr(cond.match.value)
 
 
 _QUANTIZED_TYPES = {

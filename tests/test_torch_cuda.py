@@ -9,6 +9,9 @@ Tolerance, bf16 mode: survivor scores within D * 2^-23 * max|q| * max|v|
 products in f32 in another order; ids equal wherever the winner beats the
 runner-up by more. int8 mode: bit for bit (the integer dot is exact in
 both, and both round the scale and the bias add separately).
+
+The tier's torch scans, the sparse programs and the graph programs (beams and
+one insert round) are held on `cuda` against the same functions on `cpu`.
 """
 
 import numpy as np
@@ -371,3 +374,81 @@ def test_sparse_programs_on_card_equal_cpu(cuda, monkeypatch):
             _same_candidates(*out, *ref, rtol=1e-5)
         else:
             np.testing.assert_allclose(out.cpu().numpy(), ref.numpy(), rtol=1e-5, atol=0)
+
+
+def _knn_graph(rng, n, d, m):
+    """Clustered rows with a brute-force m-nearest adjacency and SQ codes."""
+    centers = rng.uniform(0, 200, size=(64, d)).astype(np.float32)
+    x = np.clip(centers[rng.integers(0, 64, n)]
+                + 20 * rng.standard_normal((n, d)).astype(np.float32), 0, 255)
+    n2 = (x * x).sum(1)
+    dist = n2[:, None] - 2 * (x @ x.T) + n2[None, :]
+    np.fill_diagonal(dist, np.inf)
+    links = np.argsort(dist, axis=1)[:, :m].astype(np.int32)
+    scale = float(np.quantile(np.abs(x), 0.99)) / 127.0
+    codes = np.clip(np.round(x / scale), -127, 127).astype(np.int8)
+    return x, links, codes, n2.astype(np.float32), scale
+
+
+def test_graph_programs_on_card_equal_cpu(cuda):
+    """The level beam, the inline beam and one int8 insert round on `cuda`
+    against the same functions on `cpu`. The inline beam traverses in
+    integers: ids equal, rescored f32 within 1e-5 of |q|^2 + |v|^2 (its
+    formula cancels). The level beam scores in f32: its ten best are equal
+    (ids, scores 1e-5 relative). The insert round is integer: links equal."""
+    from qdrant_tpu_torch.ops import hnsw as ops
+    from qdrant_tpu_torch.ops import hnsw_build as hb
+    from qdrant_tpu_torch.ops.hnsw_inline import beam_search_inline, pack_linkcodes_device
+
+    rng = np.random.default_rng(11)
+    n, d, m, b = 4000, 128, 16, 32
+    x, links, codes, norms, scale = _knn_graph(rng, n, d, m)
+    q = x[rng.integers(0, n, b)] + rng.standard_normal((b, d)).astype(np.float32)
+    q_i8 = np.clip(np.round(q / scale), -127, 127).astype(np.int8)
+    rows = n + 1  # one spare row
+    links_p = np.vstack([links, np.full((1, m), -1, np.int32)])
+    rank = np.arange(n, dtype=np.int32)
+    entries = np.zeros((b, 1), np.int32)
+    scale_sq = float(np.float32(2.0 * scale * scale))
+
+    def on(dev, *arrays):
+        return [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in arrays]
+
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        qd, qi, v, l, c, nr, r, e = on(dev, q, q_i8, x, links_p, codes, norms, rank, entries)
+        table = pack_linkcodes_device(l, c, nr)
+        level = ops.beam_search_level(qd, v, l, e, None, 48, 112, "Euclid", compact_of=r)
+        inline = beam_search_inline(qd, qi, table, scale_sq, r, v, e, None, m=m, d=d, ef=48,
+                                    iters=28, expand=4, euclid=True, k=48)
+        batch = np.arange(100, 356, dtype=np.int32)
+        bi, ow, ent = on(dev, batch, np.append(rank, -1).astype(np.int32),
+                         np.zeros(256, np.int32))
+        counts = (l >= 0).sum(1).to(torch.int32)
+        hb.insert_batch_level0(l, counts, bi, c[bi.long()], c, nr, r, ow, ent, scale_sq,
+                               ef=48, iters=10, expand=8, m0=m, inc_cap=16, ov_cap=256,
+                               euclid=True, sel_c=48, merge_forward=True)
+        out[dev.type] = [t.cpu().numpy() for t in (*level, *inline, table, l, counts)]
+    g, c = out["cuda"], out["cpu"]
+    np.testing.assert_array_equal(g[4], c[4])  # the packed table
+    np.testing.assert_array_equal(g[3], c[3])  # inline ids
+    np.testing.assert_allclose(g[2], c[2], rtol=0, atol=1e-5 * float(2 * norms.max()))
+    np.testing.assert_array_equal(g[1][:, :10], c[1][:, :10])  # level beam, ten best
+    np.testing.assert_allclose(g[0][:, :10], c[0][:, :10], rtol=1e-5)
+    np.testing.assert_array_equal(g[5][:-1], c[5][:-1])  # links after the round
+    np.testing.assert_array_equal(g[6][:-1], c[6][:-1])
+    assert (g[5][:-1] != links).any()
+
+
+def test_int8_dots_past_f32_exactness_on_card(cuda):
+    """D = 1536 saturated codes: the chunked f32 product on the card gives
+    the int32 sum, bit for bit, where one f32 sum would round."""
+    from qdrant_tpu_torch.ops.hnsw_inline import int8_dots
+
+    rng = np.random.default_rng(12)
+    q = rng.choice(np.array([126, 127], np.int8), size=(4, 1536))
+    codes = rng.choice(np.array([125, 126, 127], np.int8), size=(4, 64, 1536))
+    exact = np.einsum("bd,bkd->bk", q.astype(np.int64), codes.astype(np.int64))
+    assert exact.max() > 2 ** 24
+    got = int8_dots(torch.from_numpy(q).to(cuda), torch.from_numpy(codes).to(cuda))
+    np.testing.assert_array_equal(got.cpu().numpy(), exact.astype(np.float32))

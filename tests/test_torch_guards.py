@@ -2,8 +2,8 @@
 
 * qdrant_tpu_torch runs with jax and qdrant_tpu made unimportable: a
   subprocess blocks both, serves REST over a TableOfContent on the CPU and
-  runs a dense, a tiered (quantized, on-disk rows) and a sparse search; no
-  import of either was even attempted, and no qdrant_tpu module is loaded
+  runs a dense, a graph (`params.hnsw_ef` on a sealed segment), a tiered
+  (quantized, on-disk rows) and a sparse search; no import of either was even attempted, and no qdrant_tpu module is loaded
   afterwards.
 * No source file of the port (nor chip_smoke.py) imports jax or qdrant_tpu.
 * The modules copied from qdrant_tpu (the REST / collection shell, and the
@@ -58,6 +58,18 @@ call("PUT", "/collections/g/points?wait=true", {"points": [
     {"id": i, "vector": [float(i), 0.0, 0.0, 1.0]} for i in range(20)]})
 hits = call("POST", "/collections/g/points/search", {"vector": [3.1, 0, 0, 1], "limit": 2})
 assert [h["id"] for h in hits] == [3, 4], hits
+# a sealed collection: the seal builds its HNSW graph, hnsw_ef searches it
+call("PUT", "/collections/h", {"vectors": {"size": 4, "distance": "Euclid"},
+     "hnsw_config": {"m": 4, "ef_construct": 16},
+     "optimizers_config": {"indexing_threshold": 30}})
+call("PUT", "/collections/h/points?wait=true", {"points": [
+    {"id": i, "vector": [float(i), 0.0, 0.0, 1.0]} for i in range(40)]})
+seg, = [s for s in toc.get_collection("h").shards[0].segments if not s.appendable]
+assert seg.hnsw[""].entry >= 0
+hits = call("POST", "/collections/h/points/search",
+            {"vector": [3.1, 0, 0, 1], "limit": 2, "params": {"hnsw_ef": 16}})
+assert [h["id"] for h in hits] == [3, 4], hits
+assert seg.hnsw[""].served["level"] == 1
 # a tiered collection (codes on the device, f32 rows on disk), sealed
 call("PUT", "/collections/t", {"vectors": {"size": 4, "distance": "Dot", "on_disk": True,
      "quantization_config": {"scalar": {"type": "int8"}}},
@@ -211,8 +223,9 @@ def test_copied_shell_equals_original(rel):
 
 # modules the port rewrote for torch (not copies), and empty package markers
 PORTED = {
-    "__init__.py", "__main__.py", "index/plain.py", "index/sparse.py",
-    "ops/distances.py", "ops/quantization.py", "ops/scan.py", "ops/sparse.py",
+    "__init__.py", "__main__.py", "index/hnsw.py", "index/plain.py", "index/sparse.py",
+    "ops/distances.py", "ops/hnsw.py", "ops/hnsw_build.py", "ops/hnsw_inline.py",
+    "ops/quantization.py", "ops/scan.py", "ops/sparse.py",
     "storage/segment.py", "storage/vectors.py", "utils/telemetry.py",
 }
 

@@ -48,6 +48,25 @@ from qdrant_tpu_torch.device import force_cpu
 
 force_cpu()  # the port on the CPU, with the kernels' plain versions
 
+
+@pytest.fixture(autouse=True)
+def tiny_graphs(monkeypatch):
+    """Every seal of a resident vector builds its HNSW graph; these tests hold
+    the quantized paths, never search a graph, and seal up to 65,536 rows,
+    whose host-orchestrated build takes minutes on the CPU (the JAX side of
+    `_segments` skips its build for that reason). Seal with the graph over
+    the first 64 rows: real, loadable files."""
+    from qdrant_tpu_torch.index.hnsw import HnswIndex
+
+    real = HnswIndex.build
+
+    def build(self, *args, **kwargs):
+        ids = np.arange(len(self.store), dtype=np.int32) if self.subset is None else self.subset
+        self.subset = ids[:64]
+        return real(self, *args, **kwargs)
+
+    monkeypatch.setattr(HnswIndex, "build", build)
+
 EPS = 2.0 ** -23
 DISTANCES = ["Dot", "Cosine", "Euclid", "Manhattan"]
 ENCODINGS = {

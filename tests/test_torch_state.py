@@ -7,8 +7,9 @@
   relative (f32 rescore in another summation order).
 * `scan_index_from_jax` turns a JAX ScanIndex's arrays into the port's block
   bit for bit (bf16 payload compared as raw 16-bit patterns).
-* The port seals without a graph, reloads its own segments, keeps a JAX
-  graph's files untouched, and refuses configs it cannot serve yet.
+* The port's seal builds the HNSW graph, its own segments reload with it, a
+  graph written by the JAX package is loaded, searched and left as it was on
+  disk, and configs the port cannot serve yet are refused.
 """
 
 import functools
@@ -118,17 +119,30 @@ def test_port_seals_without_graph_and_reloads(tmp_path):
     c.upsert([{"id": i, "vector": x[i].tolist()} for i in range(1500)])
     segs = c.shards[0].segments
     assert any(not s.appendable and len(s) == 1500 for s in segs)
-    assert all(not s.hnsw for s in segs)
+    # the seal builds the graph (and an appendable segment has none)
+    assert all(bool(s.hnsw) != s.appendable for s in segs)
     q = rng.standard_normal((3, 12)).astype(np.float32)
     res = c.search_dense("", q, 5)
     truth = np.argsort(-(q @ x.T), axis=1)[:, :5]
     assert [[h[1] for h in row] for row in res] == truth.tolist()
     assert c.search_dense("", q, 5, params=SearchParams(exact=True, hnsw_ef=64)) == res
-    with pytest.raises(NotImplementedError, match="graph"):
-        c.search_dense("", q, 5, params=SearchParams(hnsw_ef=64))
+    # an explicit hnsw_ef is answered from the graph: exact scores of the
+    # ids it returns, nearly all of the exact top 5 at this size
+    graph = c.search_dense("", q, 5, params=SearchParams(hnsw_ef=256))
+    sealed = next(s for s in segs if not s.appendable)
+    assert sealed.hnsw[""].served["level"] >= 1
+    exact = q @ x.T
+    for qi, row in enumerate(graph):
+        assert len({h[1] for h in row}) == 5
+        for score, pid, *_ in row:
+            assert abs(score - exact[qi, pid]) <= 1e-4 * max(1.0, abs(exact[qi, pid]))
+    hit = sum(len({h[1] for h in row} & set(t)) for row, t in zip(graph, truth.tolist()))
+    assert hit >= 13
     toc.close()
     toc2 = TableOfContent(str(tmp_path))
-    assert toc2.get_collection("s").search_dense("", q, 5) == res
+    c2 = toc2.get_collection("s")
+    assert c2.search_dense("", q, 5) == res
+    assert c2.search_dense("", q, 5, params=SearchParams(hnsw_ef=256)) == graph
     toc2.close()
 
 
@@ -153,9 +167,11 @@ def test_jax_graph_files_stay_untouched(tmp_path, monkeypatch):
     q = rng.standard_normal((2, 8)).astype(np.float32)
     res = c.search_dense("", q, 4)
     xn = x / np.linalg.norm(x, axis=1, keepdims=True)
-    assert [[h[1] for h in row] for row in res] == np.argsort(-(q @ xn.T), axis=1)[:, :4].tolist()
-    with pytest.raises(NotImplementedError):
-        c.search_dense("", q, 4, params=SearchParams(hnsw_ef=32))
+    truth = np.argsort(-(q @ xn.T), axis=1)[:, :4].tolist()
+    assert [[h[1] for h in row] for row in res] == truth
+    # the JAX-built graph is loaded and answers an hnsw_ef search
+    graph = c.search_dense("", q, 4, params=SearchParams(hnsw_ef=128))
+    assert [[h[1] for h in row] for row in graph] == truth
     toc.flush_all()
     toc.close()
     assert sorted(os.listdir(graph_dir)) == before

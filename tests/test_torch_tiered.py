@@ -42,6 +42,24 @@ from qdrant_tpu_torch.types import Distance
 
 force_cpu()  # the port on the CPU
 
+
+@pytest.fixture(autouse=True)
+def tiny_graphs(monkeypatch):
+    """Every seal of a resident vector builds its HNSW graph; these tests hold
+    the tier, never search a graph, and one seals 20,000 resident rows, whose
+    host-orchestrated build takes over a minute on the CPU. Seal with the
+    graph over the first 64 rows: real, loadable files."""
+    from qdrant_tpu_torch.index.hnsw import HnswIndex
+
+    real = HnswIndex.build
+
+    def build(self, *args, **kwargs):
+        ids = np.arange(len(self.store), dtype=np.int32) if self.subset is None else self.subset
+        self.subset = ids[:64]
+        return real(self, *args, **kwargs)
+
+    monkeypatch.setattr(HnswIndex, "build", build)
+
 BLK = tscan.DEFAULT_BLOCK
 assert BLK == jscan.DEFAULT_BLOCK
 
