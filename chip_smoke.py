@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch / CUDA port (qdrant_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py [--seed 0] [--phases build,kernel,rest,graph,filtered,sq,tier,sparse]
+    python3 chip_smoke.py [--seed 0] [--phases build,kernel,rest,graph,filtered,sq,tier,sparse,multi]
     python3 chip_smoke.py --phases build,graph     # the graph path alone (the short call)
+    python3 chip_smoke.py --phases build,multi     # the multivector path alone
     python3 chip_smoke.py --phases build,sweep     # tuning only, not run by default
 
 Phases, each printing its numbers on its own line:
@@ -124,7 +125,27 @@ Phases, each printing its numbers on its own line:
              (dense + sparse prefetch of 30 each) with recall against RRF
              (k = 60) of the two exact rankings recorded, and the bf16 scan
              kernel's launch count must rise by the dense prefetches.
-8. sweep     (only when named) times the scan + merge as a replayed CUDA
+8. multi     multivectors (Qdrant docs, "Multivectors": ColBERT late
+             interaction, 128-d tokens, Cosine, `max_sim`): 131,072
+             documents (MULTI_DOCS, of an MS MARCO corpus's 8.8M; 16-64
+             tokens each, where ColBERT's doc_maxlen is 180), made from --seed
+             around 4,096 topic centres, with `group` = "a" on every tenth
+             under a keyword index. The first 4,096 go through
+             Collection.upsert and are timed (the line gives what the whole
+             load would take that way); the rest go through the appendable
+             segment under one bulk-ingest marker in the WAL. 64 `points/query` requests of 32 query tokens (ColBERT's
+             query_maxlen), each drawn around one document's tokens, from 8
+             threads before the seal (brute max-sim over the padded block:
+             recall@10 >= 0.99 against a numpy max-sim that shares no code
+             with the port, scores within 1e-4), then max-sim on the card
+             against the CPU on 8,192 documents; the optimizer's seal (pooled
+             proxy rows, graph); the same 64 through the pooled graph with
+             max-sim rescore (recall printed, under 0.5 fails), 16 filtered
+             (every hit matches) and one retrieval of 8 token matrices. Each
+             window is traced (the graph window's first 16 requests); no scan
+             kernel may launch (max-sim is a torch product, as in the JAX
+             package).
+9. sweep     (only when named) times the scan + merge as a replayed CUDA
              graph for several chunk counts per slot, at the REST launches,
              at B = 64 (one query tile) and B = 256 (four), and at a V small
              enough (34 MB) to stay in L2; `cta_gbps` is the V bytes one CTA
@@ -161,7 +182,7 @@ import urllib.request
 import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-ALL_PHASES = ("build", "kernel", "rest", "graph", "filtered", "sq", "tier", "sparse")
+ALL_PHASES = ("build", "kernel", "rest", "graph", "filtered", "sq", "tier", "sparse", "multi")
 EXTRA_PHASES = ("sweep",)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet)
 PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12}  # dense tensor-core peaks
@@ -173,6 +194,10 @@ SQ_ROWS = 262_144
 # builds a graph, and the 1M x 128 build takes the time this cut frees)
 TIER_ROWS = 262_144
 TIER_PEAK_BYTES = 1e9  # 3 GB at 1,000,000 rows: codes 0.40 GB + the upload's chunk
+# documents of the multi phase: an MS MARCO passage corpus has 8.8M; at
+# 262,144 the phase takes ~400 s of host time (the seal's defragment, the
+# numpy truth, the load), which would carry the script past 1,000 s
+MULTI_DOCS = 131_072
 
 
 class SmokeError(RuntimeError):
@@ -1544,6 +1569,377 @@ def run_sparse(rng, storage, fs, n=1_000_000, d=128, vocab=30_000, n_queries=64,
         toc.close()
 
 
+# ---------------------------------------------------------------------------
+# phase 8: multivectors (ColBERT max-sim) through REST
+# ---------------------------------------------------------------------------
+
+
+def _colbert_corpus(rng, n, d, n_topics, tmin=16, tmax=64, chunk=16384):
+    """ColBERT-shaped documents: tmin..tmax tokens (uniform) of d dims, each
+    document's base row scattered around one of n_topics centres and its
+    tokens around its base → (flat tokens [total, d] f32, starts, lens)."""
+    lens = rng.integers(tmin, tmax + 1, n)
+    starts = np.cumsum(lens) - lens
+    centres = rng.standard_normal((n_topics, d), dtype=np.float32)
+    topic = rng.integers(0, n_topics, n)
+    flat = np.empty((int(lens.sum()), d), dtype=np.float32)
+    for lo in range(0, n, chunk):  # bounded temporaries
+        hi = min(lo + chunk, n)
+        base = centres[topic[lo:hi]] + 0.5 * rng.standard_normal((hi - lo, d), dtype=np.float32)
+        a, b = starts[lo], starts[hi - 1] + lens[hi - 1]
+        rng.standard_normal((b - a, d), dtype=np.float32, out=flat[a:b])
+        flat[a:b] *= 0.5
+        flat[a:b] += np.repeat(base, lens[lo:hi], axis=0)
+    return flat, starts, lens
+
+
+def _unit_rows(a, chunk=1 << 20):
+    """Rows scaled to unit length, in place, in chunks."""
+    for i in range(0, len(a), chunk):
+        part = a[i : i + chunk]
+        part /= np.linalg.norm(part, axis=-1, keepdims=True)
+    return a
+
+
+def _exact_maxsim_scores(flat_n, starts, lens, qn, chunk_docs=2048, workers=4):
+    """Numpy max-sim of every query against every document, independent of
+    the port: unit tokens, one product per chunk of documents against all
+    query tokens, a max over each document's tokens, a sum over each query's
+    → [B, n] f32. Chunks run on `workers` threads (numpy releases the
+    interpreter lock in both steps; the segment max is single-threaded)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    b, t, d = qn.shape
+    qrows = np.ascontiguousarray(qn.reshape(b * t, d))
+    n = len(starts)
+    out = np.empty((b, n), dtype=np.float32)
+
+    def chunk(lo):
+        hi = min(lo + chunk_docs, n)
+        a = starts[lo]
+        # [B*T, tokens]: each document's tokens contiguous in a row, so the
+        # segment max runs along rows (5x quicker than down columns)
+        sims = qrows @ flat_n[a : starts[hi - 1] + lens[hi - 1]].T
+        best = np.maximum.reduceat(sims, starts[lo:hi] - a, axis=1)  # [B*T, docs]
+        out[:, lo:hi] = best.reshape(b, t, hi - lo).sum(axis=1)
+
+    with ThreadPoolExecutor(workers) as pool:
+        list(pool.map(chunk, range(0, n, chunk_docs)))  # re-raises a chunk's error
+    return out
+
+
+def _top(scores, k):
+    part = np.argpartition(-scores, k, axis=1)[:, :k]
+    order = np.argsort(-np.take_along_axis(scores, part, axis=1), axis=1, kind="stable")
+    return np.take_along_axis(part, order, axis=1)
+
+
+def _maxsim_score_err(hits, flat_n, starts, lens, qn):
+    """Worst relative gap between returned scores and the exact max-sim of
+    the returned ids."""
+    worst = 0.0
+    for qi, h in enumerate(hits):
+        for p in h:
+            i = p["id"]
+            ref = float((qn[qi] @ flat_n[starts[i] : starts[i] + lens[i]].T).max(axis=1).sum())
+            check(np.isfinite(p["score"]), "non-finite score")
+            worst = max(worst, abs(p["score"] - ref) / abs(ref))
+    return worst
+
+
+def _maxsim_cuda_vs_cpu(tokens, tmask, valid, q_dev, distance, n_sub=8192):
+    """score_multivector_maxsim on the card against the same function on the
+    CPU over the first n_sub documents of the padded block: -inf in the same
+    places, scores within a summation-order tolerance (1e-5 of the largest),
+    the ten best equal modulo ties → dict of numbers."""
+    import torch
+
+    from qdrant_tpu_torch.ops.distances import score_multivector_maxsim
+
+    args = (tokens[:n_sub], tmask[:n_sub])
+    worst, swaps = 0.0, 0
+    for qi in range(q_dev.shape[0]):
+        g = score_multivector_maxsim(q_dev[qi], *args, distance, valid[:n_sub]).cpu().numpy()
+        c = score_multivector_maxsim(
+            q_dev[qi].cpu(), *(a.cpu() for a in args), distance, valid[:n_sub].cpu()).numpy()
+        check(bool((np.isfinite(g) == np.isfinite(c)).all()),
+              "max-sim on the card and on the CPU disagree on which documents score")
+        fin = np.isfinite(c)
+        scale = float(np.abs(c[fin]).max())
+        err = float(np.abs(g[fin] - c[fin]).max()) / scale
+        check(err <= 1e-5, f"max-sim on the card is off the CPU's by {err} of the largest")
+        worst = max(worst, err)
+        tg, tc = _top(g[None], 10)[0], _top(c[None], 10)[0]
+        for pos in np.flatnonzero(tg != tc):  # only where the scores tie
+            check(abs(c[tg[pos]] - c[tc[pos]]) <= 1e-5 * scale,
+                  "the ten best differ between the card and the CPU beyond ties")
+            swaps += 1
+    torch.cuda.synchronize()
+    return {"documents": n_sub, "queries": int(q_dev.shape[0]),
+            "max_rel_err_of_largest": worst, "top10_swaps_at_ties": swaps}
+
+
+def _multi_host_breakdown(coll, seg, q, reps=3):
+    """Host-clock ms of the steps under one brute multivector search on the
+    sealed-or-not segment `seg`, each averaged over `reps` calls after one
+    warm call. The max-sim and top-k rows include the device work and its
+    sync."""
+    import torch
+
+    from qdrant_tpu_torch.ops.distances import preprocess_vectors, score_multivector_maxsim
+    from qdrant_tpu_torch.ops.hnsw import topk_first
+    from qdrant_tpu_torch.types import parse_filter
+
+    store = seg.multi["colbert"]
+    tokens, tmask, valid = store.padded_block()
+    q_dev = torch.from_numpy(preprocess_vectors(q, store.distance)).to(tokens.device)
+    flt = parse_filter({"must": [{"key": "group", "match": {"value": "a"}}]})
+    scores = score_multivector_maxsim(q_dev, tokens, tmask, "Cosine", valid)
+
+    def avg(fn):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / reps
+
+    def mask_upload():
+        alive = seg.alive_mask()
+        valid & torch.from_numpy(alive).to(tokens.device)
+
+    return {
+        "segment_alive_mask_ms": avg(seg.alive_mask),
+        "filter_mask_group_a_ms": avg(lambda: seg.filter_mask(flt)),
+        "mask_upload_and_and_ms": avg(mask_upload),
+        "padded_block_cached_ms": avg(store.padded_block),
+        "maxsim_ms": avg(lambda: score_multivector_maxsim(
+            q_dev, tokens, tmask, "Cosine", valid)),
+        "topk_ms": avg(lambda: topk_first(scores, 10)[1].cpu()),
+        "segment_search_multi_ms": avg(lambda: seg.search_multi("colbert", q, 10)),
+        "collection_search_multi_ms": avg(lambda: coll.search_multi("colbert", q, 10)),
+    }
+
+
+def _multi_window(base, bodies, threads, truth, flat_n, starts, lens, qn, label, full=True):
+    """`points/query` with the token matrices through REST → (hits,
+    numbers). `full`: every query must return 10 hits (a filtered graph
+    walk may return fewer: counted)."""
+    res, wall = _concurrent_post(base, "/collections/colbert/points/query", bodies, threads)
+    hits = [r["points"] for r in res]
+    check(not full or all(len(h) == 10 for h in hits),
+          f"a {label} query returned fewer than 10 hits")
+    check(all(len({p["id"] for p in h}) == len(h) for h in hits), f"a {label} query repeats an id")
+    worst = _maxsim_score_err(hits, flat_n, starts, lens, qn)
+    check(worst <= 1e-4, f"{label}: returned max-sim scores off by {worst} (relative)")
+    return hits, {"requests": len(bodies), "threads": threads, "wall_s": wall,
+                  "qps": len(bodies) / wall, "recall_at_10": _recall(hits, truth, 10),
+                  "score_rel_err": worst, "hits_per_query": [min(map(len, hits)),
+                                                             max(map(len, hits))]}
+
+
+def run_multi(rng, storage, fs, n=MULTI_DOCS, d=128, n_topics=4096, n_queries=64,
+              q_tokens=32, threads=8, n_filtered=16, profile_dir=None):
+    """The multi phase: a ColBERT collection through REST, its brute max-sim
+    before the seal and its pooled-proxy graph after it → dict of numbers."""
+    import gc
+
+    import torch
+
+    from qdrant_tpu_torch.api.rest import RestServer
+    from qdrant_tpu_torch.api.toc import TableOfContent
+    from qdrant_tpu_torch.storage.vectors import PooledMultiVectorStore
+
+    t_phase = time.perf_counter()
+
+    def step(name):  # progress, so that a cut run shows where its time went
+        print(f"multi: {name} done at {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    toc = TableOfContent(storage)
+    srv = RestServer(toc, host="127.0.0.1", port=0)
+    srv.start_background()
+    base = f"http://127.0.0.1:{srv.port}"
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    counters = ((fs.fused_scan_survivors, "launches"), (fs.fused_scan_survivors, "launches_int8"),
+                (fs.merge_survivors, "launches"))
+    for obj, attr in counters:
+        setattr(obj, attr, 0)
+    try:
+        # sealed once, by the optimizer pass after the brute queries
+        _call(base, "PUT", "/collections/colbert",
+              {"vectors": {"colbert": {"size": d, "distance": "Cosine",
+                                       "multivector_config": {"comparator": "max_sim"}}},
+               "optimizers_config": {"indexing_threshold": n}})
+        _call(base, "PUT", "/collections/colbert/index",
+              {"field_name": "group", "field_schema": "keyword"})
+        t0 = time.perf_counter()
+        flat, starts, lens = _colbert_corpus(rng, n, d, n_topics)
+        corpus_s = time.perf_counter() - t0
+        step("corpus")
+        src = rng.integers(0, n, n_queries)
+        queries = np.stack([
+            flat[starts[i] + rng.integers(0, lens[i], q_tokens)] for i in src
+        ]) + 0.5 * rng.standard_normal((n_queries, q_tokens, d), dtype=np.float32)
+
+        def doc(i):
+            return flat[starts[i] : starts[i] + lens[i]]
+
+        def payload(i):
+            return {"group": "a"} if i % 10 == 0 else None
+
+        coll = toc.get_collection("colbert")
+        shard = coll.shards[0]
+        # Collection.upsert writes every token of every point into the WAL:
+        # time it on the first documents and report what the whole load would
+        # take that way (146-171 s at 131,072 on the H100's host), then load
+        # the rest through the appendable segment under one bulk-ingest
+        # marker in the WAL (Shard.bulk_ingest's contract; the JAX
+        # bulk_ingest has no multivector route)
+        probe = 4096
+        t0 = time.perf_counter()
+        for lo in range(0, probe, 512):
+            coll.upsert([{"id": i, "vector": {"colbert": doc(i).tolist()},
+                          "payload": payload(i) or {}} for i in range(lo, lo + 512)],
+                        wait=False)
+        probe_s = time.perf_counter() - t0
+        step(f"upsert of {probe} documents")
+        upsert_projection_s = probe_s * n / probe
+        t0 = time.perf_counter()
+        with shard._lock:
+            op_num = shard.wal.append(
+                {"type": "bulk_ingest_marker", "n": n - probe, "names": ["colbert"]})
+            seg = shard.appendable_segment
+            for i in range(probe, n):
+                seg.upsert_point(op_num, i, {"colbert": doc(i)}, payload(i))
+            del seg
+        load_s = probe_s + time.perf_counter() - t0
+        step("load")
+        check(coll.count() == n, f"{coll.count()} points after loading {n}")
+
+        # the numpy truth: unit tokens (the store normalises its own copy)
+        t0 = time.perf_counter()
+        flat_n = _unit_rows(flat)
+        qn = queries / np.linalg.norm(queries, axis=-1, keepdims=True)
+        exact = _exact_maxsim_scores(flat_n, starts, lens, qn)
+        truth = _top(exact, 10)
+        member = np.arange(n)[::10]
+        truth_a = member[_top(exact[:n_filtered, member], 10)]
+        truth_s = time.perf_counter() - t0
+        step("numpy truth")
+        bodies = [{"query": q.tolist(), "using": "colbert", "limit": 10} for q in queries]
+
+        # brute max-sim: the appendable segment has no graph
+        appendable = shard.appendable_segment
+        t0 = time.perf_counter()
+        tokens, tmask, valid = appendable.multi["colbert"].padded_block()
+        torch.cuda.synchronize()
+        block = {"padded_block_build_s": time.perf_counter() - t0,
+                 "padded_block_shape": list(tokens.shape),
+                 "padded_block_bytes": tokens.numel() * tokens.element_size()}
+        step("padded block")
+        _concurrent_post(base, "/collections/colbert/points/query", bodies[:1], 1)  # warm-up
+        _, brute = _multi_window(base, bodies, threads, truth, flat_n, starts, lens, qn, "brute")
+        check(brute["recall_at_10"] >= 0.99,
+              f"brute max-sim recall@10 {brute['recall_at_10']} < 0.99")
+        step("brute window")
+        brute.update(_traced_window(
+            lambda: _concurrent_post(base, "/collections/colbert/points/query", bodies,
+                                     threads), profile_dir, "multi_brute"))
+        brute["host_breakdown"] = _multi_host_breakdown(coll, appendable, queries[0])
+        q_dev = torch.from_numpy(qn[:4].astype(np.float32)).to(tokens.device)
+        step("brute trace and host breakdown")
+        cuda_vs_cpu = _maxsim_cuda_vs_cpu(tokens, tmask, valid, q_dev, "Cosine")
+        step("max-sim cuda vs cpu")
+        del tokens, tmask, valid, appendable, q_dev
+        brute_peak = torch.cuda.max_memory_allocated()
+
+        # the seal: defragment, pooled proxy rows, graph over them
+        t0 = time.perf_counter()
+        toc.optimize_all()
+        optimize_s = time.perf_counter() - t0
+        step("seal")
+        sealed = [s for s in shard.segments if not s.appendable and len(s) == n]
+        check(bool(sealed) and "colbert" in sealed[0].hnsw_multi,
+              "the optimizer did not seal the multivector collection with a pooled graph: "
+              f"{[(len(s), s.appendable, list(s.hnsw_multi)) for s in shard.segments]}")
+        seg = sealed[0]
+        index = seg.hnsw_multi["colbert"]
+        stats = index.build_stats
+        check(stats.get("device_build") is True, "the seal did not use the device builder")
+        t0 = time.perf_counter()
+        PooledMultiVectorStore(seg.multi["colbert"])
+        pool_s = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+        seal = {"optimize_s": optimize_s, "graph_build_s": stats["seconds"],
+                "pooled_proxy_s": pool_s,
+                "graph": _graph_stats(index, n)}
+
+        # the pooled graph: the same queries, then the filtered ones
+        t0 = time.perf_counter()
+        _concurrent_post(base, "/collections/colbert/points/query", bodies[:1], 1)
+        first_graph_s = time.perf_counter() - t0
+        index.served.clear()
+        _, graph = _multi_window(base, bodies, threads, truth, flat_n, starts, lens, qn, "graph")
+        check(sum(index.served.values()) >= n_queries,
+              f"the graph answered {dict(index.served)} of {n_queries} queries")
+        check(graph["recall_at_10"] >= 0.5,
+              f"pooled-graph recall@10 {graph['recall_at_10']} < 0.5: a broken graph or rescore")
+        step("graph window")
+        graph["served_by"] = dict(index.served)
+        graph["first_search_s"] = first_graph_s
+        # a quarter of the window under the profiler: at ~3,700 device ops a
+        # request, reading back the whole window's trace takes longer than
+        # the window itself
+        graph["traced_requests"] = len(bodies) // 4
+        graph.update(_traced_window(
+            lambda: _concurrent_post(base, "/collections/colbert/points/query",
+                                     bodies[: len(bodies) // 4], threads),
+            profile_dir, "multi_graph"))
+        flt = {"must": [{"key": "group", "match": {"value": "a"}}]}
+        f_hits, filtered = _multi_window(
+            base, [{**b, "filter": flt, "with_payload": True} for b in bodies[:n_filtered]],
+            threads, truth_a, flat_n, starts, lens, qn[:n_filtered], "filtered", full=False)
+        check(all(p["payload"].get("group") == "a" for h in f_hits for p in h),
+              "a filtered multivector hit does not match the filter")
+        filtered["matching"] = len(member)
+        step("graph trace and filtered window")
+
+        ids = [int(i) for i in rng.choice(n, 8, replace=False)]
+        got = _call(base, "POST", "/collections/colbert/points",
+                    {"ids": ids, "with_vector": True})
+        check(sorted(p["id"] for p in got) == sorted(ids), "retrieval lost a point")
+        for p in got:
+            stored = np.asarray(p["vector"]["colbert"], dtype=np.float32)
+            check(stored.shape == (lens[p["id"]], d) and np.allclose(
+                stored, flat_n[starts[p["id"]] : starts[p["id"]] + lens[p["id"]]],
+                rtol=1e-5, atol=1e-6), f"point {p['id']} came back with other tokens")
+        launches = {f"{obj.__name__}.{attr}": getattr(obj, attr) for obj, attr in counters}
+        check(not any(launches.values()), f"the multi phase launched a scan kernel: {launches}")
+        return {
+            "documents": n, "dim": d, "tokens": int(lens.sum()),
+            "tokens_per_document": [int(lens.min()), int(lens.max())],
+            "query_tokens": q_tokens, "topics": n_topics,
+            "cuts": {"documents": f"{n} of MS MARCO's 8.8M", "doc_maxlen": "64 of ColBERT's 180"},
+            "load_route": ("Segment.upsert_point under one bulk-ingest marker in the WAL "
+                           "(the WAL records of Collection.upsert bypassed)"),
+            "upsert_probe_docs": probe, "upsert_probe_s": probe_s,
+            "upsert_projection_s": upsert_projection_s, "load_s": load_s,
+            "corpus_s": corpus_s, "numpy_truth_s": truth_s, **block,
+            "brute": brute, "maxsim_cuda_vs_cpu": cuda_vs_cpu,
+            "brute_max_memory_allocated_bytes": brute_peak, "seal": seal,
+            "graph": graph, "filtered": filtered, "retrieved": len(got),
+            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+            "kernel_launches": launches,
+        }
+    finally:
+        srv.shutdown()
+        toc.close()
+
+
 def _exact_cosine(x, q, k, chunk=131072):
     """Numpy cosine brute force, independent of the port, in row chunks →
     (ids [B, k] best first, the unit-normalised rows)."""
@@ -1588,6 +1984,8 @@ def main() -> int:
     ap.add_argument("--graph-rows", type=int, default=1_000_000,
                     help="points of the rest and graph phases' collection (fewer, "
                     "not under 100,000, only to find faults quickly)")
+    ap.add_argument("--multi-docs", type=int, default=MULTI_DOCS,
+                    help="documents of the multi phase (fewer only to find faults quickly)")
     ap.add_argument("--profile", metavar="DIR",
                     help="trace one extra REST window with torch.profiler into DIR")
     args = ap.parse_args()
@@ -1790,6 +2188,16 @@ def main() -> int:
         print(f"sparse splade: {json.dumps(res)} ({card})", flush=True)
         lap("sparse")
         launched["rrf"] = ("bf16", res["rrf"]["kernel_launches"], res["rrf"]["merge_launches"])
+    multi_launches = None
+    if "multi" in phases:
+        storage = tempfile.mkdtemp(prefix="smoke_multi_", dir=storage_root)
+        try:
+            res = run_multi(rng, storage, fs, n=args.multi_docs, profile_dir=args.profile)
+        finally:
+            shutil.rmtree(storage, ignore_errors=True)
+        print(f"multi colbert: {json.dumps(res)} ({card})", flush=True)
+        lap("multi")
+        multi_launches = list(res["kernel_launches"].values())  # bf16, int8, merge
     check(not torch.backends.cuda.matmul.allow_tf32, "a phase turned TF32 matmuls on")
     check("jax" not in sys.modules, "the port imported jax")
     reference = sorted(m for m in sys.modules if m.split(".")[0] == "qdrant_tpu")
@@ -1805,6 +2213,10 @@ def main() -> int:
                 "launches": count, "shape": res.get("shape"),
                 **{k: src[k] for k in ("ms", "graph_ms", "plain_ms", "bound_ms", "bound_by",
                                        "max_abs_err") if k in src}}
+    if multi_launches is not None:  # checked 0: max-sim and the graph take no kernel
+        for key, count in zip(("bf16", "int8", "merge"), multi_launches):
+            rows[key]["launches"] += count
+            rows[key].setdefault("by_phase", {})["multi"] = {"launches": count, "shape": None}
     print(json.dumps({"kernels": list(rows.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

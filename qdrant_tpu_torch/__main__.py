@@ -1,10 +1,12 @@
 """Process entry point: `python -m qdrant_tpu_torch --storage-dir ... --http-port ...`.
 
 Loads settings, opens the storage root (TableOfContent) and serves the REST
-API on the CUDA device. Without a card it refuses to start unless the CPU
-was asked for (`--force-cpu` or QDRANT_TPU_FORCE_CPU=1); then the kernels'
-plain versions run. gRPC and cluster mode are not ported yet: `--uri` and
-`--bootstrap` are refused. Ctrl-C flushes all collections before exit.
+API, and gRPC on `service.grpc_port` where the `grpc` package is installed
+(without it the server logs that gRPC did not start and serves REST), on the
+CUDA device. Without a card it refuses to start unless the CPU was asked for
+(`--force-cpu` or QDRANT_TPU_FORCE_CPU=1); then the kernels' plain versions
+run. Cluster mode is not ported yet: `--uri` and `--bootstrap` are refused
+(ROADMAP.md queue 1, item 4). Ctrl-C flushes all collections before exit.
 """
 
 from __future__ import annotations
@@ -145,10 +147,28 @@ def main(argv=None) -> int:
         host, server.port, storage_path, device,
     )
 
+    grpc_server = None
+    try:  # the grpc package is optional: REST and the device never need it
+        from .api.grpc_server import make_server
+
+        grpc_server, bound = make_server(
+            toc,
+            host=host,
+            port=int(settings.get_path("service.grpc_port", 6334)),
+            api_key=settings.get_path("service.api_key"),
+            read_only_api_key=settings.get_path("service.read_only_api_key"),
+        )
+        grpc_server.start()
+        log.info("qdrant-tpu-torch gRPC listening on %s:%d", host, bound)
+    except Exception as e:  # grpc runtime optional
+        log.warning("gRPC server not started: %s", e)
+
     def shutdown(signum, frame):
         log.info("shutting down; flushing collections")
         if reporter is not None:
             reporter.stop()
+        if grpc_server is not None:
+            grpc_server.stop(2)
         # serve_forever runs on this thread, which the handler interrupts:
         # httpd.shutdown() waits for that loop to exit, so call it from
         # another thread; the collections flush in the finally below

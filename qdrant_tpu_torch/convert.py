@@ -15,6 +15,10 @@ across as flat numpy arrays, where the main route is the `sparse_*/`
 directory. `hnsw_index_from_jax` carries a built JAX graph (levels, rank,
 entry and both link tables) across as numpy arrays, where the main route is
 the `hnsw_*/` directory, so both packages can search the same graph.
+`multivector_from_jax` carries a JAX multivector store's token rows and
+ranges across, where the main route is the `multi_*/` directory; a JAX
+pooled-proxy graph then comes across through `hnsw_index_from_jax` over the
+port's `PooledMultiVectorStore` of that store.
 """
 
 from __future__ import annotations
@@ -30,8 +34,8 @@ from .index.sparse import SparseIndex, SparseVectorStore
 from .ops import quantization as qops
 from .ops.fused_scan import DEFAULT_BLK
 from .ops.scan import ScanIndex
-from .storage.vectors import DenseVectorStore
-from .types import HnswConfig
+from .storage.vectors import DenseVectorStore, MultiVectorStore
+from .types import Datatype, Distance, HnswConfig
 
 
 def scan_index_from_jax(
@@ -121,4 +125,21 @@ def hnsw_index_from_jax(index, store: DenseVectorStore) -> HnswIndex:
     out.counts0 = np.array(index.counts0, dtype=np.int32)
     out.links_upper = np.array(index.links_upper, dtype=np.int32)
     out.counts_upper = np.array(index.counts_upper, dtype=np.int32)
+    return out
+
+
+def multivector_from_jax(store) -> MultiVectorStore:
+    """The port's MultiVectorStore holding a copy of a JAX
+    `MultiVectorStore`: the flat (already preprocessed) token rows, the
+    (start, len) ranges and the deleted flags cross as numpy arrays."""
+    n = len(store)
+    out = MultiVectorStore(
+        store.dim, Distance(store.distance.value), Datatype(store.datatype.value)
+    )
+    out._flat = np.array(store._flat[: store._flat_count], dtype=np.float32)
+    out._flat_count = int(store._flat_count)
+    out._ranges = np.array(store._ranges[:n], dtype=np.int64)
+    out._deleted = np.array(store._deleted[:n], dtype=bool)
+    out._count = n
+    out._deleted_count = int(out._deleted.sum())
     return out

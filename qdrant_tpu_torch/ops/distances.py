@@ -11,7 +11,9 @@ Internal score convention: **larger is always better**.
 Low-precision storage (bf16 / f16) scores with f32 accumulation, as the JAX
 functions do with `preferred_element_type=float32`: operands are rounded to
 the storage type and the product is taken in f32. Everything here is plain
-torch; it serves segments below the fused scan's row threshold.
+torch; it serves segments below the fused scan's row threshold, and the
+multivector max-sim (a jax.jit program in the JAX package, outside any
+Pallas kernel).
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..device import require_exact_f32_matmul
 from ..types import Distance
 
 NEG_INF = float(-np.inf)
@@ -141,3 +144,57 @@ def pairwise_scores(
         diff = a32[:, :, None, :] - b32[:, None, :, :]
         return -diff.abs().sum(dim=-1)
     raise ValueError(f"unknown distance {distance}")  # pragma: no cover
+
+
+# bytes of the largest temporary one max-sim chunk makes: unchunked, the
+# [N, S, T] f32 products of 262,144 points x 64 tokens x 32 query tokens
+# would be 2.1 GB
+MAXSIM_CHUNK_BYTES = 1 << 28
+
+
+def score_multivector_maxsim(
+    query: torch.Tensor,  # [T, D] query token matrix
+    vectors: torch.Tensor,  # [N, S, D] padded per-point token matrices
+    token_mask: torch.Tensor,  # [N, S] bool: valid tokens
+    distance: str,
+    valid_mask: Optional[torch.Tensor] = None,  # [N] bool
+) -> torch.Tensor:
+    """ColBERT-style late-interaction max-sim scores → [N] (counterpart of
+    qdrant_tpu/ops/distances.py::score_multivector_maxsim):
+
+        score(q, v) = sum_t max_s sim(q_t, v_s)
+
+    Padded tokens score -inf, a point with no tokens or an invalid point
+    -inf. Dot / cosine / euclid take one f32 product of the flattened
+    [n·S, D] block with the query's [D, T] (TF32 refused, as everywhere in
+    the port) and reduce it in place; manhattan takes |q_t - v_s| summed
+    over D. Chunked over N so that no temporary passes MAXSIM_CHUNK_BYTES.
+    """
+    dist = Distance(distance)
+    require_exact_f32_matmul(vectors)
+    q32 = query.float()
+    n, s, d = vectors.shape
+    t = q32.shape[0]
+    # the largest temporary per point: [S, T, D] differences for manhattan,
+    # else the [S, T] products or an [S, D] f32 copy / square of the tokens
+    per_point = s * 4 * (t * d if dist is Distance.MANHATTAN else max(t, d))
+    step = max(1, MAXSIM_CHUNK_BYTES // per_point)
+    q_sq = (q32 * q32).sum(dim=-1)  # [T]
+    out = torch.empty(n, dtype=torch.float32, device=vectors.device)
+    for lo in range(0, n, step):
+        v32 = vectors[lo : lo + step].float()  # [m, S, D]
+        m = v32.shape[0]
+        if dist is Distance.MANHATTAN:
+            sims = -(v32[:, :, None, :] - q32[None, None, :, :]).abs().sum(dim=-1)
+        else:
+            sims = (v32.reshape(m * s, d) @ q32.T).reshape(m, s, t)
+            if dist is Distance.EUCLID:  # 2 q·v - |q|^2 - |v|^2
+                sims.mul_(2.0).sub_(q_sq).sub_((v32 * v32).sum(dim=-1)[:, :, None])
+        tm = token_mask[lo : lo + step]
+        sims.masked_fill_(~tm[:, :, None], NEG_INF)
+        best = sims.amax(dim=1)  # [m, T]
+        scores = torch.where(torch.isfinite(best), best, 0.0).sum(dim=-1)
+        out[lo : lo + m] = torch.where(tm.any(dim=-1), scores, NEG_INF)
+    if valid_mask is not None:
+        out = torch.where(valid_mask, out, NEG_INF)
+    return out

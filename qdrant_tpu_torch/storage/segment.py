@@ -1,10 +1,10 @@
 """Segment: the per-shard storage + index unit (counterpart of
 qdrant_tpu/storage/segment.py).
 
-Id tracker + named dense and sparse vector stores + payload storage / index,
-with versioned idempotent ops keyed by op_num. A dense search answers exactly
-through PlainIndex (the fused scan kernel's bf16 mode at 65,536 rows or
-more), unless the vector is quantized: sealing (`build_indexes`) encodes a
+Id tracker + named dense, multi and sparse vector stores + payload storage /
+index, with versioned idempotent ops keyed by op_num. A dense search answers
+exactly through PlainIndex (the fused scan kernel's bf16 mode at 65,536 rows
+or more), unless the vector is quantized: sealing (`build_indexes`) encodes a
 vector with a quantization config as the JAX seal does, and its searches
 score the codes, oversample and rescore in f32 — through the fused scan
 kernel's int8 mode for SQ at 65,536 rows or more. A quantized `on_disk`
@@ -16,12 +16,15 @@ index/sparse.py. Sealing a resident dense vector builds its HNSW graph
 (index/hnsw.py) and one subgraph per payload block, as the JAX seal does; a
 search takes the graph when `params.hnsw_ef` asks for it (or past the
 crossover row count), a block's subgraph under a matching `must match`
-filter, and the ACORN beam under a selective filter.
+filter, and the ACORN beam under a selective filter. A multivector (ColBERT
+token matrices) is scored by exact max-sim over its padded token block below
+`full_scan_threshold` points; above it the seal's graph over mean-pooled
+proxy rows proposes candidates and max-sim rescores them, as in the JAX
+segment.
 
-Not ported yet, and refused rather than served differently: multivectors
-raise NotImplementedError when a segment with such a config is created, and
-a mesh-sharded graph directory when it is loaded. The on-disk format is the
-JAX package's.
+Not ported yet, and refused rather than served differently: a mesh-sharded
+graph directory raises NotImplementedError when it is loaded. The on-disk
+format is the JAX package's.
 """
 
 from __future__ import annotations
@@ -37,7 +40,12 @@ import torch
 from ..device import default_device
 from ..index.payload_index import StructPayloadIndex
 from ..ops import quantization as qops
-from ..ops.distances import preprocess_vectors, score_ids_batch
+from ..ops.distances import (
+    preprocess_vectors,
+    score_ids_batch,
+    score_multivector_maxsim,
+)
+from ..ops.hnsw import topk_first
 from ..storage.id_tracker import IdTracker
 from ..storage.payload import PayloadStorage
 from ..types import (
@@ -60,7 +68,7 @@ from ..utils.budget import BUDGET
 from ..index.hnsw import HnswIndex, load_hnsw_any
 from ..index.plain import PlainIndex, fetch_to_host, finalize_device_result
 from ..index.sparse import SparseIndex, SparseVectorStore
-from .vectors import DenseVectorStore
+from .vectors import DenseVectorStore, MultiVectorStore, PooledMultiVectorStore
 
 
 def _with_search_budget(fn):
@@ -100,6 +108,10 @@ def set_low_memory_mode(mode: str) -> None:
     _LOW_MEMORY_MODE = mode
 
 
+def low_memory_mode() -> str:
+    return _LOW_MEMORY_MODE
+
+
 # On-disk segment format version, shared with the JAX package.
 SEGMENT_FORMAT_VERSION = 2
 
@@ -123,22 +135,6 @@ def _migrate_segment_meta(meta: dict, path: str) -> dict:
     if fv < 2:
         meta["format_version"] = 2
     return meta
-
-
-_NOT_PORTED = "not ported to qdrant_tpu_torch yet (ROADMAP.md queue 1, item {})"
-
-
-def refuse_unported(params: CollectionParams) -> None:
-    """Raise NotImplementedError for a config the port cannot serve yet."""
-    for name, vp in params.vectors.items():
-        _refuse_vector(name, vp)
-
-
-def _refuse_vector(name: str, vp: VectorParams) -> None:
-    if vp.multivector_config is not None:
-        raise NotImplementedError(
-            f"multivector {name!r} is " + _NOT_PORTED.format("1b: multivector")
-        )
 
 
 class SearchParams:
@@ -178,7 +174,6 @@ class SearchParams:
 
 class Segment:
     def __init__(self, params: CollectionParams, appendable: bool = True):
-        refuse_unported(params)
         self.params = params
         self.appendable = appendable
         self.version = 0  # max applied op_num
@@ -188,20 +183,23 @@ class Segment:
         # until confirmed
         self.deferred: set = set()
         self.dense: Dict[str, DenseVectorStore] = {}
-        # index kinds not ported yet stay empty; the shell above reads them
-        self.multi: Dict[str, Any] = {}
+        self.multi: Dict[str, MultiVectorStore] = {}
         self.sparse: Dict[str, SparseVectorStore] = {}
         self.sparse_index: Dict[str, SparseIndex] = {}
         self.hnsw: Dict[str, HnswIndex] = {}
-        self.hnsw_multi: Dict[str, Any] = {}  # stays empty with multivectors
+        # multivector name → HnswIndex over its PooledMultiVectorStore
+        self.hnsw_multi: Dict[str, HnswIndex] = {}
         # filterable-HNSW payload-block subgraphs:
         # vector name → {(field, value_repr): HnswIndex over that block}
         self.hnsw_blocks: Dict[str, Dict[Tuple[str, str], HnswIndex]] = {}
         self.quantized: Dict[str, Any] = {}  # name → qops.*Quantized (sealed)
         for name, vp in params.vectors.items():
-            self.dense[name] = DenseVectorStore(
-                vp.size, vp.distance, vp.datatype, on_disk=vp.on_disk
-            )
+            if vp.multivector_config is not None:
+                self.multi[name] = MultiVectorStore(vp.size, vp.distance, vp.datatype)
+            else:
+                self.dense[name] = DenseVectorStore(
+                    vp.size, vp.distance, vp.datatype, on_disk=vp.on_disk
+                )
         for name, sp in params.sparse_vectors.items():
             self.sparse[name] = SparseVectorStore()
             self.sparse_index[name] = SparseIndex(self.sparse[name], sp.modifier)
@@ -214,13 +212,17 @@ class Segment:
     # ------------------------------------------------------------------
 
     def add_vector_name(self, name: str, vp: VectorParams) -> None:
-        """Add a named dense vector to a live segment: existing points get
-        deleted placeholder rows (the lockstep-offset scheme)."""
-        if name in self.dense or name in self.sparse:
+        """Add a named dense or multi vector to a live segment: existing
+        points get deleted placeholder rows (the lockstep-offset scheme)."""
+        if name in self.dense or name in self.multi or name in self.sparse:
             return  # idempotent: WAL replay re-applies the op after load
-        _refuse_vector(name, vp)
         self.params.vectors[name] = vp
         n = self.total_offsets
+        if vp.multivector_config is not None:
+            store = MultiVectorStore(vp.size, vp.distance, vp.datatype)
+            _add_deleted_multi(store, n)
+            self.multi[name] = store
+            return
         store = DenseVectorStore(vp.size, vp.distance, vp.datatype, on_disk=vp.on_disk)
         if n:
             offs = store.add(np.zeros((n, vp.size), dtype=np.float32))
@@ -229,11 +231,13 @@ class Segment:
         self.dense[name] = store
 
     def drop_vector_name(self, name: str) -> None:
-        if name not in self.dense:
+        if name not in self.dense and name not in self.multi:
             return  # idempotent under WAL replay
         self.params.vectors.pop(name, None)
         self.dense.pop(name, None)
+        self.multi.pop(name, None)
         self.hnsw.pop(name, None)
+        self.hnsw_multi.pop(name, None)
         self.hnsw_blocks.pop(name, None)
         self.quantized.pop(name, None)
 
@@ -249,12 +253,14 @@ class Segment:
 
         parts = {
             "dense": merge(*(sizeof(s) for s in self.dense.values())),
+            "multi": merge(*(sizeof(s) for s in self.multi.values())),
             "sparse_index": merge(
                 *(sizeof(i) for i in self.sparse_index.values())
             ),
             "quantized": merge(*(sizeof(q) for q in self.quantized.values())),
             "hnsw": merge(
                 *(sizeof(h) for h in self.hnsw.values()),
+                *(sizeof(h) for h in self.hnsw_multi.values()),
                 *(
                     sizeof(h)
                     for blocks in self.hnsw_blocks.values()
@@ -272,14 +278,16 @@ class Segment:
     @property
     def total_offsets(self) -> int:
         """Upper bound on internal offsets (including deleted slots)."""
-        counts = [len(s) for s in self.dense.values()] + [
-            len(s) for s in self.sparse.values()
-        ]
+        counts = (
+            [len(s) for s in self.dense.values()]
+            + [len(s) for s in self.multi.values()]
+            + [len(s) for s in self.sparse.values()]
+        )
         return max(counts, default=0)
 
     def _has_vector(self, name: str, offset: int) -> bool:
-        if name in self.dense:
-            store = self.dense[name]
+        store = self.dense.get(name, self.multi.get(name))
+        if store is not None:
             return offset < len(store) and not store.is_deleted(offset)
         if name in self.sparse:
             return not self.sparse[name].is_deleted(offset)
@@ -329,6 +337,15 @@ class Segment:
                 # keep offsets aligned across stores: a deleted placeholder
                 off = store.add(np.zeros((1, store.dim), dtype=np.float32))[0]
                 store.delete(off)
+        for name, store in self.multi.items():
+            vec = vectors.get(name)
+            if vec is not None:
+                if internal is None:
+                    store.add([np.asarray(vec, dtype=np.float32)])
+                else:
+                    store.set(internal, np.asarray(vec, dtype=np.float32))
+            elif internal is None:
+                _add_deleted_multi(store, 1)
         for name, store in self.sparse.items():
             vec = vectors.get(name)
             if vec is not None:
@@ -380,6 +397,8 @@ class Segment:
                 offs = store.add(np.zeros((n, store.dim), dtype=np.float32))
                 for off in offs:
                     store.delete(int(off))
+        for store in self.multi.values():  # bulk loads carry dense rows only
+            _add_deleted_multi(store, n)
         for name, store in self.sparse.items():
             store.add_flat(
                 np.zeros(n, dtype=np.int64),
@@ -407,6 +426,8 @@ class Segment:
             return False
         for store in self.dense.values():
             store.delete(internal)
+        for store in self.multi.values():
+            store.delete(internal)
         for name, store in self.sparse.items():
             if store.delete(internal):
                 self.sparse_index[name].invalidate()
@@ -426,6 +447,8 @@ class Segment:
         for name, vec in vectors.items():
             if name in self.dense:
                 self.dense[name].set(internal, np.asarray(vec, dtype=np.float32))
+            elif name in self.multi:
+                self.multi[name].set(internal, np.asarray(vec, dtype=np.float32))
             elif name in self.sparse:
                 sv = vec if isinstance(vec, SparseVector) else SparseVector.from_dict(vec)
                 self.sparse[name].set(internal, sv)
@@ -445,6 +468,8 @@ class Segment:
         for name in names:
             if name in self.dense:
                 self.dense[name].delete(internal)
+            elif name in self.multi:
+                self.multi[name].delete(internal)
             elif name in self.sparse:
                 if self.sparse[name].delete(internal):
                     self.sparse_index[name].invalidate()
@@ -533,7 +558,8 @@ class Segment:
             return None
         out: Dict[str, Any] = {
             name: store.get(internal).tolist()
-            for name, store in self.dense.items()
+            for stores in (self.dense, self.multi)
+            for name, store in stores.items()
             if internal < len(store) and not store.is_deleted(internal)
         }
         for name, store in self.sparse.items():
@@ -588,6 +614,10 @@ class Segment:
         self.id_tracker.set_version(internal, op_num)
         self.version = max(self.version, op_num)
         return True
+
+    @property
+    def num_deferred_points(self) -> int:
+        return len(self.deferred)
 
     # ------------------------------------------------------------------
     # search
@@ -995,6 +1025,71 @@ class Segment:
         return ("dev", (s, i, b, kk), k)
 
     @_with_search_budget
+    def search_multi(
+        self,
+        name: str,
+        query: np.ndarray,  # [T, D] query token matrix
+        k: int,
+        flt: Optional[Filter] = None,
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        """Max-sim search of one token matrix → (scores [1, k], offsets
+        [1, k]). Below `full_scan_threshold` points (or without a graph)
+        every point is scored; above it the pooled-proxy graph proposes
+        max(4k, 64) candidates and max-sim rescores them, as the JAX
+        segment does."""
+        store = self.multi[name]
+        if len(store) == 0:
+            return (
+                np.full((1, k), -np.inf, dtype=np.float32),
+                np.full((1, k), -1, dtype=np.int32),
+            )
+        fmask = self.filter_mask(flt)
+        alive = self.alive_mask()
+        combined = alive if fmask is None else (alive & fmask)
+        tokens, token_mask, valid = store.padded_block()
+        n = tokens.shape[0]
+        dev = tokens.device
+        comb_pad = np.zeros(n, dtype=bool)
+        comb_pad[: len(combined)] = combined[:n]
+        valid = valid & torch.from_numpy(comb_pad).to(dev)
+        raw = np.atleast_2d(np.asarray(query, dtype=np.float32))
+        q = torch.from_numpy(preprocess_vectors(raw, store.distance)).to(dev)
+        distance = store.distance.value
+        idx = self.hnsw_multi.get(name)
+        vp = self.params.vectors[name]
+        threshold = (
+            vp.hnsw_config.full_scan_threshold
+            if vp.hnsw_config
+            else DEFAULT_FULL_SCAN_THRESHOLD
+        )
+        s_out = np.full((1, k), -np.inf, dtype=np.float32)
+        i_out = np.full((1, k), -1, dtype=np.int32)
+        if idx is not None and len(store) >= threshold:
+            # pooled graph walk → exact max-sim rescore of the oversampled
+            # winners
+            pooled_q = preprocess_vectors(raw.mean(axis=0, keepdims=True), store.distance)
+            k_over = min(max(4 * k, 64), max(int(combined.sum()), 1))
+            _, cand = idx.search(pooled_q, k_over, filter_mask=combined)
+            cand_ids = cand[0][cand[0] >= 0]
+            if cand_ids.size:
+                sel = torch.from_numpy(cand_ids.astype(np.int64)).to(dev)
+                sub_scores = score_multivector_maxsim(
+                    q, tokens[sel], token_mask[sel], distance, valid[sel]
+                )
+                kk = min(k, int(cand_ids.size))
+                [(top_s, ti)] = fetch_to_host([topk_first(sub_scores, kk)])
+                s_out[0, :kk] = top_s
+                i_out[0, :kk] = cand_ids[ti]
+                i_out[0] = np.where(np.isfinite(s_out[0]), i_out[0], -1)
+                return s_out, i_out
+        scores = score_multivector_maxsim(q, tokens, token_mask, distance, valid)
+        k_eff = min(k, n)
+        [(top_s, top_i)] = fetch_to_host([topk_first(scores, k_eff)])
+        s_out[0, :k_eff] = top_s
+        i_out[0, :k_eff] = np.where(np.isfinite(top_s), top_i, -1)
+        return s_out, i_out
+
+    @_with_search_budget
     def search_sparse(
         self,
         name: str,
@@ -1028,7 +1123,9 @@ class Segment:
     # ------------------------------------------------------------------
 
     def build_indexes(self, default_hnsw: Optional[HnswConfig] = None) -> None:
-        """Seal the segment. Every resident dense vector with live rows gets
+        """Seal the segment. Every multivector with live points gets an HNSW
+        graph over its mean-pooled proxy rows. Every resident dense vector
+        with live rows gets
         its HNSW graph and one subgraph per payload block of at least
         `full_scan_threshold` points (an `on_disk` vector skips the graph:
         it would force the f32 block onto the device). A vector with a
@@ -1041,6 +1138,15 @@ class Segment:
         from ..index.plain import SCAN_THRESHOLD
         from ..ops.fused_scan import DEFAULT_BLK
 
+        for name, vp in self.params.vectors.items():
+            mstore = self.multi.get(name)
+            if mstore is None or mstore.available_count == 0:
+                continue
+            idx = HnswIndex(
+                PooledMultiVectorStore(mstore), vp.hnsw_config or default_hnsw or HnswConfig()
+            )
+            idx.build()
+            self.hnsw_multi[name] = idx
         for name, vp in self.params.vectors.items():
             store = self.dense.get(name)
             if store is None:
@@ -1092,7 +1198,7 @@ class Segment:
             },
             "deferred": sorted(self.deferred),
             "hnsw": list(self.hnsw.keys()),
-            "hnsw_multi": [],
+            "hnsw_multi": list(self.hnsw_multi.keys()),
             "hnsw_blocks": {
                 name: [
                     [field, vkey, f"hnsw_block_{_safe(name)}_{i}"]
@@ -1115,10 +1221,14 @@ class Segment:
         self.payload_storage.save(path)
         for name, store in self.dense.items():
             store.save(os.path.join(path, f"dense_{_safe(name)}"))
+        for name, store in self.multi.items():
+            store.save(os.path.join(path, f"multi_{_safe(name)}"))
         for name, store in self.sparse.items():
             store.save(os.path.join(path, f"sparse_{_safe(name)}"))
         for name, idx in self.hnsw.items():
             idx.save(os.path.join(path, f"hnsw_{_safe(name)}"))
+        for name, idx in self.hnsw_multi.items():
+            idx.save(os.path.join(path, f"hnsw_multi_{_safe(name)}"))
         for name, blocks in self.hnsw_blocks.items():
             for i, sub in enumerate(blocks.values()):
                 sub.save(os.path.join(path, f"hnsw_block_{_safe(name)}_{i}"))
@@ -1143,7 +1253,13 @@ class Segment:
             seg.payload_storage = PayloadStorage.load(path)
         for name, vp in params.vectors.items():
             sub = os.path.join(path, f"dense_{_safe(name)}")
-            if os.path.exists(sub):
+            if vp.multivector_config is not None:
+                msub = os.path.join(path, f"multi_{_safe(name)}")
+                if os.path.exists(msub):
+                    seg.multi[name] = MultiVectorStore.load(
+                        msub, vp.size, vp.distance, vp.datatype
+                    )
+            elif os.path.exists(sub):
                 seg.dense[name] = DenseVectorStore.load(
                     sub, vp.size, vp.distance, vp.datatype,
                     on_disk=vp.on_disk or _LOW_MEMORY_MODE != "disabled",
@@ -1161,6 +1277,15 @@ class Segment:
             cfg = params.vectors[name].hnsw_config or HnswConfig()
             seg.hnsw[name] = load_hnsw_any(
                 os.path.join(path, f"hnsw_{_safe(name)}"), seg.dense[name], cfg
+            )
+        for name in meta.get("hnsw_multi", []):
+            mstore = seg.multi.get(name)
+            if mstore is None:
+                continue
+            seg.hnsw_multi[name] = HnswIndex.load(
+                os.path.join(path, f"hnsw_multi_{_safe(name)}"),
+                PooledMultiVectorStore(mstore),
+                params.vectors[name].hnsw_config or HnswConfig(),
             )
         for name, blocks in meta.get("hnsw_blocks", {}).items():
             cfg = params.vectors[name].hnsw_config or HnswConfig()
@@ -1205,6 +1330,14 @@ def _upload_codes(quant, store: DenseVectorStore, kernel_block: int) -> None:
         quant.flat_device(DEFAULT_BLOCK)
     else:
         quant.device()
+
+
+def _add_deleted_multi(store: MultiVectorStore, n: int) -> None:
+    """Append `n` deleted one-token placeholders (keeps offsets aligned
+    across a segment's stores)."""
+    zero = np.zeros((1, store.dim), dtype=np.float32)
+    for off in store.add([zero] * n):
+        store.delete(int(off))
 
 
 def _safe(name: str) -> str:

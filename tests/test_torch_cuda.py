@@ -10,8 +10,9 @@ products in f32 in another order; ids equal wherever the winner beats the
 runner-up by more. int8 mode: bit for bit (the integer dot is exact in
 both, and both round the scale and the bias add separately).
 
-The tier's torch scans, the sparse programs and the graph programs (beams and
-one insert round) are held on `cuda` against the same functions on `cpu`.
+The tier's torch scans, the sparse programs, the graph programs (beams and
+one insert round) and the multivector max-sim are held on `cuda` against the
+same functions on `cpu`.
 """
 
 import numpy as np
@@ -452,3 +453,54 @@ def test_int8_dots_past_f32_exactness_on_card(cuda):
     assert exact.max() > 2 ** 24
     got = int8_dots(torch.from_numpy(q).to(cuda), torch.from_numpy(codes).to(cuda))
     np.testing.assert_array_equal(got.cpu().numpy(), exact.astype(np.float32))
+
+
+@pytest.mark.parametrize("distance", ["Dot", "Cosine", "Euclid", "Manhattan"])
+def test_maxsim_on_card_equals_cpu(cuda, monkeypatch, distance):
+    """score_multivector_maxsim on `cuda` against `cpu` (chunked over points
+    on both): -inf in the same places, scores within 1e-5 relative of the
+    largest (another summation order), the ten best the same modulo ties."""
+    from qdrant_tpu_torch.ops import distances
+
+    monkeypatch.setattr(distances, "MAXSIM_CHUNK_BYTES", 1 << 22)
+    rng = np.random.default_rng(13)
+    n, s, d, t = 3000, 64, 128, 32
+    tokens = rng.standard_normal((n, s, d)).astype(np.float32)
+    tmask = np.arange(s)[None, :] < rng.integers(0, 65, n)[:, None]
+    valid = rng.random(n) < 0.9
+    q = rng.standard_normal((t, d)).astype(np.float32)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        args = [torch.from_numpy(a).to(dev) for a in (q, tokens, tmask)]
+        scores = distances.score_multivector_maxsim(
+            *args, distance, torch.from_numpy(valid).to(dev))
+        out[dev.type] = scores.cpu().numpy()
+    g, c = out["cuda"], out["cpu"]
+    np.testing.assert_array_equal(np.isfinite(g), np.isfinite(c))
+    fin = np.isfinite(c)
+    np.testing.assert_allclose(g[fin], c[fin], rtol=0, atol=1e-5 * np.abs(c[fin]).max())
+    top_g, top_c = np.argsort(-g, kind="stable")[:10], np.argsort(-c, kind="stable")[:10]
+    np.testing.assert_allclose(np.sort(g[top_g]), np.sort(c[top_c]), rtol=1e-5)
+
+
+@pytest.mark.parametrize("distance", ["Euclid", "Dot"])
+def test_device_store_scan_index_on_card(cuda, distance):
+    """DeviceVectorStore.scan_index() lays out the full block on the card in
+    the kernel's format: the bf16 rows bit for bit those ScanIndex uploads
+    from the same host rows, the bias within the last bits of |v|² (summed
+    on the card there, by numpy here), pad rows past `count` invalid."""
+    from qdrant_tpu_torch.ops.scan import ScanIndex
+    from qdrant_tpu_torch.storage.vectors import DeviceVectorStore
+    from qdrant_tpu_torch.types import Distance
+
+    rng = np.random.default_rng(5)
+    data = rng.standard_normal((384, 24)).astype(np.float32)
+    store = DeviceVectorStore(torch.from_numpy(data).to(cuda), Distance(distance), count=300)
+    store.delete(7)
+    scan = store.scan_index()
+    host = ScanIndex(data, valid_mask=~store.deleted_mask, euclid=distance == "Euclid",
+                     device=cuda)
+    assert scan.n == 384 and scan._v.is_cuda
+    assert torch.equal(scan._v.view(torch.int16), host._v.view(torch.int16))
+    np.testing.assert_allclose(scan._mask.cpu().numpy(), host._mask.cpu().numpy(), rtol=1e-6)
+    assert (scan._mask.cpu().numpy()[[7, 300, 383]] < -1e38).all()

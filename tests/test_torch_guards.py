@@ -3,8 +3,11 @@
 * qdrant_tpu_torch runs with jax and qdrant_tpu made unimportable: a
   subprocess blocks both, serves REST over a TableOfContent on the CPU and
   runs a dense, a graph (`params.hnsw_ef` on a sealed segment), a tiered
-  (quantized, on-disk rows) and a sparse search; no import of either was even attempted, and no qdrant_tpu module is loaded
-  afterwards.
+  (quantized, on-disk rows), a sparse and a multivector search, and the
+  embedded client; no import of either was even attempted, and no
+  qdrant_tpu module is loaded afterwards.
+* Only the two gRPC modules import `grpc` / `google.protobuf` at module
+  level: REST and the device path never need them.
 * No source file of the port (nor chip_smoke.py) imports jax or qdrant_tpu.
 * The modules copied from qdrant_tpu (the REST / collection shell, and the
   jax-free modules the port shares with the reference unchanged) equal their
@@ -90,6 +93,23 @@ call("PUT", "/collections/s/points?wait=true", {"points": [
 hits = call("POST", "/collections/s/points/query",
             {"query": {"indices": [4], "values": [2.0]}, "using": "text", "limit": 2})["points"]
 assert [h["id"] for h in hits] == [19, 14] and hits[0]["score"] == 40.0, hits
+# a multivector collection: max-sim over token matrices, then the token
+# matrix back by retrieval
+call("PUT", "/collections/m", {"vectors": {"colbert": {"size": 4, "distance": "Dot",
+     "multivector_config": {"comparator": "max_sim"}}}})
+call("PUT", "/collections/m/points?wait=true", {"points": [
+    {"id": i, "vector": {"colbert": [[float(i), 0.0, 0.0, 1.0], [0.0, 1.0, 0.0, 0.0]]}}
+    for i in range(10)]})
+hits = call("POST", "/collections/m/points/query",
+            {"query": [[1.0, 0, 0, 0], [0, 0, 0, 1.0]], "using": "colbert", "limit": 2})["points"]
+assert [h["id"] for h in hits] == [9, 8] and hits[0]["score"] == 10.0, hits
+pts = call("POST", "/collections/m/points", {"ids": [3], "with_vector": True})
+assert pts[0]["vector"]["colbert"] == [[3.0, 0.0, 0.0, 1.0], [0.0, 1.0, 0.0, 0.0]], pts
+from qdrant_tpu_torch.embedded import QdrantTpu
+with QdrantTpu() as db:
+    db.create_collection("e", vectors={"size": 4, "distance": "Dot"})
+    db.upsert("e", [{"id": 1, "vector": [1.0, 2.0, 3.0, 4.0]}])
+    assert db.search("e", [1.0, 0, 0, 0], limit=1)[0]["id"] == 1
 call("GET", "/telemetry?details_level=3")
 call("GET", "/openapi.json")
 srv.shutdown()
@@ -144,6 +164,22 @@ def test_no_reference_package_import_in_port_sources():
     assert not REFERENCE_IMPORT.search("from qdrant_tpu_torch.types import Distance")
 
 
+GRPC_IMPORT = re.compile(r"^(import grpc\b|from grpc\b|import google\b|from google\b)", re.M)
+GRPC_MODULES = {"api/grpc_schema.py", "api/grpc_server.py"}
+
+
+def test_grpc_imported_only_by_the_grpc_modules():
+    """A machine without the grpc package serves REST and the device path:
+    no other module of the port imports grpc or protobuf at module level,
+    and the entry point imports the gRPC server inside a guard."""
+    base = os.path.join(ROOT, "qdrant_tpu_torch")
+    found = {os.path.relpath(p, base) for p in _port_sources()
+             if p.startswith(base) and GRPC_IMPORT.search(open(p).read())}
+    assert found == GRPC_MODULES
+    main = open(os.path.join(base, "__main__.py")).read()
+    assert "    from .api.grpc_server import make_server" in main
+
+
 _FROM = re.compile(r"^(\s*)from (\.+)?([\w.]*) import (.*)$")
 
 
@@ -178,6 +214,8 @@ COPIED = [
     "api/openapi.py",
     # modules shared with the reference unchanged
     "api/auth.py",
+    "api/grpc_schema.py",
+    "api/grpc_server.py",
     "api/issues.py",
     "api/metrics.py",
     "api/webui.py",
@@ -188,6 +226,7 @@ COPIED = [
     "collection/formula.py",
     "collection/hash_ring.py",
     "collection/sampling.py",
+    "embedded.py",
     "index/payload_index.py",
     "index/postings.py",
     "native/__init__.py",
@@ -199,6 +238,8 @@ COPIED = [
     "storage/object_store.py",
     "storage/payload.py",
     "storage/wal.py",
+    "tools/__init__.py",
+    "tools/wal_pop.py",
     "types.py",
     "utils/bm25.py",
     "utils/budget.py",
@@ -226,7 +267,8 @@ PORTED = {
     "__init__.py", "__main__.py", "index/hnsw.py", "index/plain.py", "index/sparse.py",
     "ops/distances.py", "ops/hnsw.py", "ops/hnsw_build.py", "ops/hnsw_inline.py",
     "ops/quantization.py", "ops/scan.py", "ops/sparse.py",
-    "storage/segment.py", "storage/vectors.py", "utils/telemetry.py",
+    "storage/segment.py", "storage/vectors.py", "tools/segment_inspector.py",
+    "tools/wal_inspector.py", "utils/telemetry.py",
 }
 
 

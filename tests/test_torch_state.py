@@ -9,7 +9,8 @@
   bit for bit (bf16 payload compared as raw 16-bit patterns).
 * The port's seal builds the HNSW graph, its own segments reload with it, a
   graph written by the JAX package is loaded, searched and left as it was on
-  disk, and configs the port cannot serve yet are refused.
+  disk, and a config the port once refused (multivector) is created and
+  answers.
 """
 
 import functools
@@ -187,9 +188,49 @@ def test_jax_graph_files_stay_untouched(tmp_path, monkeypatch):
     ],
     ids=["multivector"],
 )
-def test_unported_configs_are_refused_at_creation(tmp_path, spec):
+def test_once_refused_configs_are_served(tmp_path, spec):
+    """Configs the port refused at creation until it served them: creation
+    now succeeds and the collection answers."""
     toc = TableOfContent(str(tmp_path))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        toc.create_collection("x", spec)
-    assert not toc.has_collection("x")
+    toc.create_collection("x", spec)
+    assert toc.has_collection("x")
+    coll = toc.get_collection("x")
+    coll.upsert([{"id": 1, "vector": [[1.0, 0.0, 0.0, 0.0]]},
+                 {"id": 2, "vector": [[0.0, 1.0, 0.0, 0.0], [0.5, 0.0, 0.0, 0.0]]}])
+    hits = coll.search_multi("", np.asarray([[0.0, 1.0, 0.0, 0.0]], np.float32), 2)
+    assert [(s, pid) for s, pid, _ in hits] == [(1.0, 2), (0.0, 1)]
     toc.close()
+
+
+def test_low_memory_mode_and_deferred_points_match_jax(tmp_path, monkeypatch):
+    """`low_memory_mode()` reads back the mode set, as in the JAX module; a
+    deferred write counts in `num_deferred_points` until confirmed, and a
+    segment saved with one loads with it, on disk under `no_resident`, in
+    both packages."""
+    from qdrant_tpu.storage import segment as jax_segment
+    from qdrant_tpu.types import CollectionParams as JaxParams
+    from qdrant_tpu_torch.storage import segment as port_segment
+    from qdrant_tpu_torch.types import CollectionParams
+
+    spec = {"vectors": {"": {"size": 4, "distance": "Dot"}}}
+    counts = {}
+    for name, mod, params in (("jax", jax_segment, JaxParams.from_dict(spec)),
+                              ("port", port_segment, CollectionParams.from_dict(spec))):
+        monkeypatch.setattr(mod, "_LOW_MEMORY_MODE", "disabled")  # restored after
+        assert mod.low_memory_mode() == "disabled"
+        seg = mod.Segment(params)
+        seg.upsert_point(1, 7, {"": [1.0, 0.0, 0.0, 0.0]})
+        seg.upsert_point(2, 8, {"": [0.0, 1.0, 0.0, 0.0]}, deferred=True)
+        seg.upsert_point(3, 9, {"": [0.0, 0.0, 1.0, 0.0]}, deferred=True)
+        before = seg.num_deferred_points
+        assert seg.confirm_deferred(4, 9)
+        seg.save(str(tmp_path / name))
+        mod.set_low_memory_mode("NO_RESIDENT")
+        loaded = mod.Segment.load(str(tmp_path / name))
+        counts[name] = (before, seg.num_deferred_points, loaded.num_deferred_points,
+                        mod.low_memory_mode(), loaded.dense[""].on_disk,
+                        seg.alive_mask().tolist())
+        with pytest.raises(ValueError):
+            mod.set_low_memory_mode("sometimes")
+    assert counts["port"] == counts["jax"] == (2, 1, 1, "no_resident", True,
+                                               [True, False, True])
