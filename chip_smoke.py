@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch / CUDA port (qdrant_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py [--seed 0] [--phases build,kernel,rest,graph,filtered,sq,tier,sparse,multi]
+    python3 chip_smoke.py [--seed 0] [--phases build,kernel,rest,graph,filtered,sq,tier,sparse,multi,cluster]
     python3 chip_smoke.py --phases build,graph     # the graph path alone (the short call)
     python3 chip_smoke.py --phases build,multi     # the multivector path alone
+    python3 chip_smoke.py --phases build,cluster   # the cluster path alone
     python3 chip_smoke.py --phases build,sweep     # tuning only, not run by default
 
 Phases, each printing its numbers on its own line:
@@ -33,13 +34,15 @@ Phases, each printing its numbers on its own line:
              100,000 x 100 (padded to 128) cosine with 10% of rows live
              (filtered) and 8 x --sparse-rows x 128 euclid (the RRF queries'
              dense prefetch; at 1,000,000 rows it is the rest launch and is
-             compared once); and 8 x 65,536 x 12,288 dot, rows too wide for resident queries. Survivor
+             compared once), 8 x --cluster-points / 3 x 128 euclid (a shard
+             replica of the cluster phase); and 8 x 65,536 x 12,288 dot, rows
+             too wide for resident queries. Survivor
              scores must agree within a worst-case f32 summation-order bound
              and ids must be equal wherever the class winner beats the
              runner-up by more than that bound.
              int8 mode (scalar-quantized codes, made on the card from
              --seed): 8 and 256 queries x 1,000,000 x 1536 dot on unit-vector
-             codes with 10% of rows deleted, 8 x 262,144 x 1536 (the sq
+             codes with 10% of rows deleted, 8 x SQ_ROWS x 1536 (the sq
              phase's launch),
              8 x 1,000,000 x 128 euclid (bias -||v||^2, 2*scale^2), and 8 x
              65,536 x 24,576 dot (streamed queries). Survivor scores and ids
@@ -79,8 +82,8 @@ Phases, each printing its numbers on its own line:
              check; it reports no throughput).
 5. sq        Qdrant's scalar-quantization deployment at its benchmark's
              width (dbpedia-openai-1M-1536-angular: 1536-d cosine, random
-             vectors from --seed, 262,144 of its 1,000,000 rows so that the
-             seven phases keep inside the script's time;
+             vectors from --seed, SQ_ROWS = 131,072 of its 1,000,000 rows so
+             that the ten phases keep inside the script's time;
              `{"scalar": {"type": "int8", "quantile": 0.99, "always_ram":
              true}}`): sealed by the
              optimizer into int8 codes, 64 default (rescored) searches from 8
@@ -92,19 +95,19 @@ Phases, each printing its numbers on its own line:
              exact cosine is printed beside it); the int8 scan and the merge
              kernels' launch counts must rise.
 6. tier      the quantized-primary tier (Qdrant docs, Quantization ->
-             "Quantized vectors in RAM, original on disk"): 262,144 x 1536
-             cosine (TIER_ROWS, cut from 1,000,000 when the graph phase came,
-             for the script's time) with `on_disk: true` and the sq phase's
-             scalar config.
+             "Quantized vectors in RAM, original on disk"): 163,840 x 1536
+             cosine (TIER_ROWS, cut from 1,000,000 when the graph phase came
+             and from 262,144 when the cluster phase came, for the script's
+             time) with `on_disk: true` and the sq phase's scalar config.
              The sealed segment must hold int8 codes on the card and no f32
-             block (peak `torch.cuda.max_memory_allocated` under 1 GB, the
+             block (peak `torch.cuda.max_memory_allocated` under 0.625 GB, the
              rows in a memmap under the storage directory); 64 default
              searches from 8 threads with recall@10 >= 0.99 against exact
              cosine and scores within 1e-4 relative, then 16 codes-only
              searches with recall@10 >= 0.95 against the brute force over
              the same codes; no fused-scan kernel may launch (this tier is
              the torch block scan, as in the JAX engine). Then TurboQuant as
-             the primary store: the first 262,144 rows with
+             the primary store: the same 163,840 rows with
              `{"turbo": {"bits": "bits4"}}` and `on_disk: true` -> packed
              4-bit codes on the card, rescored recall@10 >= 0.99, codes-only
              recall recorded. Each search window is traced once more with
@@ -126,8 +129,9 @@ Phases, each printing its numbers on its own line:
              (k = 60) of the two exact rankings recorded, and the bf16 scan
              kernel's launch count must rise by the dense prefetches.
 8. multi     multivectors (Qdrant docs, "Multivectors": ColBERT late
-             interaction, 128-d tokens, Cosine, `max_sim`): 131,072
-             documents (MULTI_DOCS, of an MS MARCO corpus's 8.8M; 16-64
+             interaction, 128-d tokens, Cosine, `max_sim`): 16,384
+             documents (MULTI_DOCS, of an MS MARCO corpus's 8.8M, cut from
+             131,072 when the cluster phase came; 16-64
              tokens each, where ColBERT's doc_maxlen is 180), made from --seed
              around 4,096 topic centres, with `group` = "a" on every tenth
              under a keyword index. The first 4,096 go through
@@ -145,7 +149,37 @@ Phases, each printing its numbers on its own line:
              window is traced (the graph window's first 16 requests); no scan
              kernel may launch (max-sim is a torch product, as in the JAX
              package).
-9. sweep     (only when named) times the scan + merge as a replayed CUDA
+9. cluster   Qdrant's distributed deployment (docs, "Distributed deployment":
+             3 peers, shard_number a multiple of the peers, replication_factor
+             2 so one peer may fail): three peers of the port in this process
+             (a TableOfContent, a REST server on loopback, a ClusterNode with
+             the settings' 0.1 s Raft tick each, all on the card) and the SIFT
+             shape's 128-d euclid rows with the rest phase's payload,
+             CLUSTER_POINTS = 212,992 of its 1,000,000 (--cluster-points;
+             67,384-75,574 points on each shard replica, over SCAN_THRESHOLD),
+             shard_number 3, replication_factor 2, write_consistency_factor 1.
+             Loaded through peer 1's REST upsert in batches of 1,024 from 4
+             threads of a client process (never bulk_ingest: it bypasses the
+             replica sets), with indexing off as Qdrant's bulk-upload advice
+             has it, then sealed once per replica (indexing_threshold 65,536
+             on each peer). Checks: placement (3 shards, 2 ACTIVE replicas on
+             2 peers each); 64 searches through peer 1 from 8 threads with
+             recall@10 >= 0.99, scores within 1e-4, and at least one bf16
+             scan and one merge launch for each remote shard search (the
+             window traced for its idle share); the same ids through peer 2;
+             16 `must match group = a` searches whose hits all match; 1,024
+             random points read back with their exact vector and payload from
+             both replicas of their shard (internal records endpoint); peer 3
+             stopped: recall kept, 4,096 upserts acknowledged, its replicas
+             moved to the live peers by stream transfers (the JAX package's
+             repair), peer 3 restarted from its storage rejoins, drops the
+             moved replicas and reads the 4,096 points back; a fourth peer
+             started as `python -m qdrant_tpu_torch --uri ... --bootstrap
+             <leader>` receives a replica of shard 0 by StreamRecords while
+             1,024 upserts go on, turns ACTIVE with the shard's count, answers
+             as peer 1 does, and stops cleanly on SIGTERM. Prints load,
+             seal, QPS, idle share, transfer seconds and points/s.
+10. sweep    (only when named) times the scan + merge as a replayed CUDA
              graph for several chunk counts per slot, at the REST launches,
              at B = 64 (one query tile) and B = 256 (four), and at a V small
              enough (34 MB) to stay in L2; `cta_gbps` is the V bytes one CTA
@@ -153,7 +187,8 @@ Phases, each printing its numbers on its own line:
 
 --profile DIR traces the rest and sq phases' search windows a second time
 with torch.profiler (device activity only; device busy and idle share from
-each window, traces in DIR) and times the host steps under one rest search;
+each window, traces in DIR) and times the host steps under one rest search
+and one cluster search;
 the tier and sparse phases trace their windows in any case and write the
 traces only with --profile.
 
@@ -172,6 +207,7 @@ import argparse
 import json
 import os
 import shutil
+import socket
 import subprocess
 import sys
 import tempfile
@@ -182,22 +218,32 @@ import urllib.request
 import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-ALL_PHASES = ("build", "kernel", "rest", "graph", "filtered", "sq", "tier", "sparse", "multi")
+ALL_PHASES = ("build", "kernel", "rest", "graph", "filtered", "sq", "tier", "sparse", "multi",
+              "cluster")
 EXTRA_PHASES = ("sweep",)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet)
 PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12}  # dense tensor-core peaks
 # rows of the sq phase: its benchmark has 1,000,000, which the phase served
-# until the tier and sparse phases came; a quarter keeps the script's time
-SQ_ROWS = 262_144
-# rows of the tier phase's int8 part: its shape has 1,000,000, which the phase
-# served until the graph phase came (every seal of a resident vector now
-# builds a graph, and the 1M x 128 build takes the time this cut frees)
-TIER_ROWS = 262_144
-TIER_PEAK_BYTES = 1e9  # 3 GB at 1,000,000 rows: codes 0.40 GB + the upload's chunk
-# documents of the multi phase: an MS MARCO passage corpus has 8.8M; at
-# 262,144 the phase takes ~400 s of host time (the seal's defragment, the
-# numpy truth, the load), which would carry the script past 1,000 s
-MULTI_DOCS = 131_072
+# until the tier and sparse phases came; 262,144 until the cluster phase
+# came (~240 s); an eighth keeps the script's time and the int8 kernel path
+# (at least 65,536 rows)
+SQ_ROWS = 131_072
+# rows of both tier parts: its shape has 1,000,000, which the phase served
+# until the graph phase came, 262,144 until the cluster phase came
+TIER_ROWS = 163_840
+# the tier's peak device memory bar at TIER_ROWS: 1 GB at 262,144 rows,
+# scaled (3 GB at 1,000,000: codes 0.40 GB a 262,144 rows + the upload's chunk)
+TIER_PEAK_BYTES = 0.625e9
+# documents of the multi phase: an MS MARCO passage corpus has 8.8M; 131,072
+# until the cluster phase came (a ~220 s phase; 65,536: ~120 s), 262,144
+# would take ~400 s; at least 10,001, or the pooled graph is never searched
+MULTI_DOCS = 16_384
+# points of the cluster phase: the SIFT1M shape has 1,000,000; the hash ring
+# splits 212,992 ids 75,574 / 70,034 / 67,384, so every replica's sealed
+# segment is over SCAN_THRESHOLD and takes the fused scan (262,144 took
+# 242-387 s, the whole script up to 1,198 s of its 1,200)
+CLUSTER_POINTS = 212_992
+CLUSTER_LOAD_THRESHOLD = 10**9  # indexing_threshold while loading: no seal
 
 
 class SmokeError(RuntimeError):
@@ -1285,8 +1331,8 @@ def _serve_tier(base, toc, fs, name, quant, kind, x, q, truth, xn, threads,
     check(store.on_disk and isinstance(store._data, np.memmap),
           "the tier's f32 rows are not in a disk memmap")
     memmap_path = os.path.abspath(store._data.filename)
-    check(memmap_path.startswith(os.path.abspath(ROOT) + os.sep),
-          f"the tier's memmap lies outside the checkout: {memmap_path}")
+    check(memmap_path.startswith(os.path.abspath(toc.storage_path) + os.sep),
+          f"the tier's memmap lies outside its storage directory: {memmap_path}")
     dev_codes = codes._scan_dev[0] if kind == "sq" else codes._flat_dev[0]
     check(dev_codes is not None and dev_codes.is_cuda, "the seal left no codes on the card")
     codes_bytes = dev_codes.numel() * dev_codes.element_size()
@@ -1338,7 +1384,7 @@ def _serve_tier(base, toc, fs, name, quant, kind, x, q, truth, xn, threads,
     }
 
 
-def run_tier(rng, storage, fs, n=TIER_ROWS, n_tq=262_144, d=1536, n_queries=64,
+def run_tier(rng, storage, fs, n=TIER_ROWS, n_tq=TIER_ROWS, d=1536, n_queries=64,
              threads=8, n_codes_only=16, profile_dir=None):
     """The tier phase: int8 codes on the card over on-disk f32 rows at n x
     1536, then 4-bit TurboQuant codes as the primary store of the first
@@ -1940,6 +1986,543 @@ def run_multi(rng, storage, fs, n=MULTI_DOCS, d=128, n_topics=4096, n_queries=64
         toc.close()
 
 
+# ---------------------------------------------------------------------------
+# phase 9: a three-peer cluster
+# ---------------------------------------------------------------------------
+
+
+def _payload(i):
+    return {"n": i, "group": "a"} if i % 10 == 0 else {"n": i}
+
+
+def _load_client(base, path, npy, start, stop, batch, threads):
+    """A client process: PUT points [start, stop) of the rows saved in `npy`
+    to `base` + `path` in batches of `batch` from `threads` threads (the
+    JSON is encoded here, not in the process that serves) → (wall seconds,
+    points acknowledged, errors)."""
+    x = np.load(npy, mmap_mode="r")
+    spans = [(s, min(s + batch, stop)) for s in range(start, stop, batch)]
+    acked, errors, lock = [0], [], threading.Lock()
+
+    def worker(idx):
+        try:
+            for j in idx:
+                s, e = spans[j]
+                _call(base, "PUT", path, {"points": [
+                    {"id": i, "vector": x[i].tolist(), "payload": _payload(i)}
+                    for i in range(s, e)]})
+                with lock:
+                    acked[0] += e - s
+        except Exception as exc:  # reported to the caller
+            errors.append(repr(exc))
+
+    ts = [threading.Thread(target=worker, args=(list(range(t, len(spans), threads)),))
+          for t in range(threads)]
+    t0 = time.perf_counter()
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join()
+    return time.perf_counter() - t0, acked[0], errors
+
+
+def _wait(pred, seconds, what, step=0.1):
+    """Poll `pred` until it holds → seconds waited (printed); fails the
+    phase after `seconds`."""
+    t0 = time.perf_counter()
+    while True:
+        try:
+            if pred():
+                waited = time.perf_counter() - t0
+                print(f"cluster: {what} after {waited:.2f} s", flush=True)
+                return waited
+        except SmokeError:
+            raise
+        except Exception:
+            pass  # a peer between states: ask again
+        check(time.perf_counter() - t0 < seconds, f"cluster: {what} not within {seconds} s")
+        time.sleep(step)
+
+
+class _Peer:
+    """A cluster peer of the port in this process: a TableOfContent under
+    `path`, a REST server on loopback and a ClusterNode with its Raft log
+    under `path`/raft."""
+
+    def __init__(self, peer_id, path, port=0):
+        from qdrant_tpu_torch.api.rest import RestServer
+        from qdrant_tpu_torch.api.toc import TableOfContent
+
+        self.peer_id, self.path = peer_id, path
+        # as the JAX package's cluster tests build a peer: no flush thread.
+        # With the entry point's 5 s flush, three peers in one process spend
+        # most of each interval re-saving ~87,000-point segments under their
+        # shard locks, and a replica's write passes its 5 s deadline
+        self.toc = TableOfContent(path)
+        self.srv = RestServer(self.toc, host="127.0.0.1", port=port)
+        self.srv.start_background()
+        self.base = f"http://127.0.0.1:{self.srv.port}"
+        self.node = None
+
+    def join(self, urls, tick):
+        from qdrant_tpu_torch.cluster.node import ClusterNode
+
+        self.node = ClusterNode(self.peer_id, self.toc, urls, tick_period=tick,
+                                raft_storage=os.path.join(self.path, "raft"))
+        self.node.start()
+
+    def stop(self):
+        if self.node is not None:
+            self.node.stop()
+        self.srv.shutdown()
+        self.toc.close()
+
+
+def _free_port():
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _leader(peers):
+    """The in-process peer that leads the Raft group now."""
+    _wait(lambda: sum(p.node.raft.role == "leader" for p in peers) == 1, 60, "a leader")
+    return next(p for p in peers if p.node.raft.role == "leader")
+
+
+def _replica_counts(peers, name, sid):
+    """{peer id: points} over the in-process peers placed to hold `sid`."""
+    out = {}
+    for p in peers:
+        coll = p.toc.get_collection(name)
+        if p.peer_id in coll.placement.get(sid, []) and sid in coll.shards:
+            out[p.peer_id] = coll.shards[sid].point_count()
+    return out
+
+
+def _all_sealed(peer, name, min_rows):
+    """Every local shard of `peer` holds one sealed segment of at least
+    `min_rows` points and an empty appendable one."""
+    for shard in peer.toc.get_collection(name).shards.values():
+        sealed = [s for s in shard.segments if not s.appendable]
+        if len(sealed) != 1 or len(sealed[0]) < min_rows:
+            return False
+        if any(len(s) for s in shard.segments if s.appendable):
+            return False
+    return True
+
+
+def _cluster_breakdown(peers, coll, name, q, reps=5):
+    """Host-clock ms of the steps under one search through peer 1: the REST
+    call, the remote shard's HTTP round trip from peer 1, the search of that
+    shard on the peer that holds it, and of a shard peer 1 holds."""
+    import torch
+
+    from qdrant_tpu_torch.cluster.remote import RemoteShardHandle
+
+    remote_sid = next(s for s, h in coll.remote_shards.items()
+                      if isinstance(h, RemoteShardHandle))
+    holder_id = coll.remote_shards[remote_sid].replicas[0][0]
+    holder = next(p for p in peers if p.peer_id == holder_id)
+    local_sid = next(iter(coll.shards))
+
+    def avg(fn):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / reps
+
+    q8 = q[:8]
+    return {
+        "rest_search_peer1_one_client_ms": avg(
+            lambda: _call(peers[0].base, "POST", f"/collections/{name}/points/search",
+                          {"vector": q[0].tolist(), "limit": 10})),
+        "remote_shard_http_b8_ms": avg(
+            lambda: coll.remote_shards[remote_sid].search_dense("", q8, 10)),
+        "holder_shard_search_dense_b8_ms": avg(
+            lambda: holder.toc.get_collection(name).shards[remote_sid].search_dense("", q8, 10)),
+        "peer1_shard_search_dense_b8_ms": avg(
+            lambda: coll.shards[local_sid].search_dense("", q8, 10)),
+    }
+
+
+def run_cluster(rng, storage, fs, n=CLUSTER_POINTS, d=128, n_queries=64, threads=8,
+                n_small=16, profile_dir=None):
+    """The cluster phase: three peers of the port in this process and a
+    fourth as a process, all on the card, over HTTP on loopback → dict of
+    numbers. Any failed check raises."""
+    import multiprocessing
+    import signal
+
+    import torch
+
+    from qdrant_tpu_torch.cluster.remote import RemoteReplica
+    from qdrant_tpu_torch.cluster.replica_set import ReplicaState
+    from qdrant_tpu_torch.device import default_device
+    from qdrant_tpu_torch.index.plain import SCAN_THRESHOLD
+
+    name, tick = "sift_cluster", 0.1  # the settings' consensus tick
+    check(default_device().type == "cuda", "the peers would not run on the card")
+    out = {"points": n, "dim": d, "peers": 3, "shard_number": 3, "replication_factor": 2}
+    peers = [_Peer(i, os.path.join(storage, f"peer{i}")) for i in (1, 2, 3)]
+    urls = {p.peer_id: p.base for p in peers}
+    for p in peers:
+        p.join(urls, tick)
+    fourth, pool = None, None
+    put = f"/collections/{name}/points?wait=true"
+    try:
+        _wait(lambda: all(p.node.raft.leader_id is not None for p in peers), 60,
+              "a leader known to every peer")
+        leader = _leader(peers)
+        out["leader"] = leader.peer_id
+        _call(leader.base, "PUT", f"/collections/{name}", {
+            "vectors": {"size": d, "distance": "Euclid"}, "shard_number": 3,
+            "replication_factor": 2, "write_consistency_factor": 1,
+            # no seal while the points arrive (Qdrant's bulk-upload advice)
+            "optimizers_config": {"indexing_threshold": CLUSTER_LOAD_THRESHOLD}})
+        _wait(lambda: all(p.toc.has_collection(name) for p in peers), 60, "the collection")
+        for p in peers:  # a payload index is each peer's own
+            _call(p.base, "PUT", f"/collections/{name}/index",
+                  {"field_name": "n", "field_schema": "integer"})
+            _call(p.base, "PUT", f"/collections/{name}/index",
+                  {"field_name": "group", "field_schema": "keyword"})
+
+        # 1. placement
+        colls = [p.toc.get_collection(name) for p in peers]
+        placement = colls[0].placement
+        check(all(c.placement == placement for c in colls), "the peers disagree on placement")
+        check(sorted(placement) == [0, 1, 2]
+              and all(len(set(v)) == 2 for v in placement.values()),
+              f"placement {placement}: not 3 shards on 2 peers each")
+        for p in peers:
+            info = _call(p.base, "GET", "/cluster")
+            check(len(info["peers"]) == 3 and info["raft_info"]["leader"] == leader.peer_id,
+                  f"GET /cluster on peer {p.peer_id}: {info}")
+            ci = _call(p.base, "GET", f"/collections/{name}/cluster")
+            local = sorted(s["shard_id"] for s in ci["local_shards"])
+            check(local == sorted(s for s, v in placement.items() if p.peer_id in v),
+                  f"peer {p.peer_id} holds shards {local}, placement {placement}")
+            for sid in local:
+                states = p.toc.get_collection(name).replica_sets[sid].states
+                check(sorted(states) == sorted(placement[sid])
+                      and all(s is ReplicaState.ACTIVE for s in states.values()),
+                      f"peer {p.peer_id} shard {sid} replica states {states}")
+        out["placement"] = {str(k): v for k, v in placement.items()}
+
+        # load through peer 1 from a client process; the rows written later
+        # (while peer 3 is down, during the transfer) follow the first n
+        n_down, n_during = 4096, 1024
+        x, q = _clustered(rng, n + n_down + n_during, d, n_queries)
+        npy = os.path.join(storage, "rows.npy")
+        np.save(npy, x)
+        x_all, x = x, x[:n]
+        torch.cuda.reset_peak_memory_stats()
+        pool = multiprocessing.get_context("spawn").Pool(1)
+        wall, acked, errors = pool.apply(
+            _load_client, (peers[0].base, put, npy, 0, n, 1024, 4))
+        check(not errors and acked == n, f"load: {acked} of {n} acknowledged, {errors[:3]}")
+        out["load_s"], out["load_points_per_s"] = wall, n / wall
+        print(f"cluster load: {wall:.2f} s, {n / wall:.1f} points/s", flush=True)
+        for sid, peer_ids in placement.items():
+            counts = _replica_counts(peers, name, sid)
+            check(sorted(counts) == sorted(peer_ids) and len(set(counts.values())) == 1,
+                  f"shard {sid} replicas hold {counts}")
+            check(counts[peer_ids[0]] >= SCAN_THRESHOLD,
+                  f"shard {sid} holds {counts[peer_ids[0]]} points, under the scan threshold")
+        out["shard_points"] = {str(s): _replica_counts(peers, name, s)[placement[s][0]]
+                               for s in placement}
+
+        # seal: each replica once, into one segment the fused scan serves;
+        # the peers' optimizer passes run side by side, as their flush
+        # threads would run them
+        for p in peers:
+            _call(p.base, "PATCH", f"/collections/{name}",
+                  {"optimizers_config": {"indexing_threshold": SCAN_THRESHOLD}})
+        seal_s = {}
+
+        def seal(peer):
+            t0 = time.perf_counter()
+            peer.toc.optimize_all()
+            seal_s[peer.peer_id] = time.perf_counter() - t0
+
+        sealers = [threading.Thread(target=seal, args=(p,)) for p in peers]
+        for t in sealers:
+            t.start()
+        for t in sealers:
+            t.join()
+        for p in peers:
+            check(_all_sealed(p, name, SCAN_THRESHOLD), f"peer {p.peer_id} did not seal: "
+                  + str({sid: [(len(s), s.appendable) for s in sh.segments] for sid, sh in
+                         p.toc.get_collection(name).shards.items()}))
+        for p in peers:  # no further seal: a replica a transfer fills stays
+            _call(p.base, "PATCH", f"/collections/{name}",  # appendable, and scanned
+                  {"optimizers_config": {"indexing_threshold": CLUSTER_LOAD_THRESHOLD}})
+        out["seal_s_by_peer"] = {str(k): v for k, v in sorted(seal_s.items())}
+        print(f"cluster seal: {json.dumps(out['seal_s_by_peer'])}", flush=True)
+        out["load_and_seal_max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
+
+        # 2. searches through peer 1, reaching the remote shard over HTTP
+        truth = _exact_topk(x, q, 10, "euclid")
+        _concurrent_search(peers[0].base, name, q[:1], 1, {"limit": 10})  # warm-up
+        remote_calls = []
+        real_search = RemoteReplica.search_dense
+
+        def counted(self, *a, **k):
+            remote_calls.append(self.base_url)
+            return real_search(self, *a, **k)
+
+        RemoteReplica.search_dense = counted
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            fs.fused_scan_survivors.launches = fs.merge_survivors.launches = 0
+            hits, wall = _concurrent_search(peers[0].base, name, q, threads, {"limit": 10})
+            launches = fs.fused_scan_survivors.launches
+            merges = fs.merge_survivors.launches
+            n_remote = len(remote_calls)
+        finally:
+            RemoteReplica.search_dense = real_search
+        check(n_remote > 0, "no search reached a remote shard")
+        check(launches >= n_remote and merges >= n_remote,
+              f"{launches} scan / {merges} merge launches for {n_remote} remote shard searches")
+        check(all(len(h) == 10 for h in hits), "a search returned fewer than 10 hits")
+        recall = _recall(hits, truth, 10)
+        worst = _euclid_score_err(hits, x, q)
+        check(recall >= 0.99, f"cluster recall@10 {recall} < 0.99")
+        check(worst <= 1e-4, f"cluster: returned distances off by {worst} (relative)")
+        out["search"] = {
+            "requests": n_queries, "threads": threads, "wall_s": wall, "qps": n_queries / wall,
+            "recall_at_10": recall, "score_rel_err": worst, "kernel_launches": launches,
+            "merge_launches": merges, "remote_shard_searches": n_remote,
+            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+            **_traced_window(lambda: _concurrent_search(
+                peers[0].base, name, q, threads, {"limit": 10}), profile_dir, "cluster")}
+        if profile_dir:
+            out["search"]["host_breakdown"] = _cluster_breakdown(peers, colls[0], name, q)
+
+        # 3. the same queries through peer 2
+        hits2, _ = _concurrent_search(peers[1].base, name, q[:n_small], threads, {"limit": 10})
+        check([[h["id"] for h in r] for r in hits2] == [[h["id"] for h in r]
+                                                        for r in hits[:n_small]],
+              "peer 2 answers with other ids than peer 1")
+
+        # 4. filtered
+        flt = {"must": [{"key": "group", "match": {"value": "a"}}]}
+        in_a = np.arange(0, n, 10)
+        truth_a = in_a[_exact_topk(x[in_a], q[:n_small], 10, "euclid")]
+        hits_a, _ = _concurrent_search(peers[0].base, name, q[:n_small], threads,
+                                       {"limit": 10, "filter": flt, "with_payload": True})
+        check(all(len(h) == 10 and all(p["payload"].get("group") == "a" for p in h)
+                  for h in hits_a), "a filtered hit does not match the filter")
+        out["filtered"] = {"requests": n_small, "recall_at_10": _recall(hits_a, truth_a, 10)}
+
+        # 5. acknowledged writes, read back from both replicas of each shard
+        ids = np.sort(rng.choice(n, 1024, replace=False))
+        by_shard = {}
+        for i in ids.tolist():
+            by_shard.setdefault(colls[0]._route_sid(i), []).append(i)
+        for sid, sids in by_shard.items():
+            for pid in placement[sid]:
+                peer = next(p for p in peers if p.peer_id == pid)
+                recs = _call(peer.base, "POST",
+                             f"/internal/collections/{name}/shards/{sid}/records",
+                             {"ids": sids})["records"]
+                check(sorted(r["id"] for r in recs) == sids,
+                      f"peer {pid} shard {sid}: {len(recs)} of {len(sids)} records")
+                for r in recs:
+                    check(np.array_equal(np.asarray(r["vectors"][""], np.float32), x[r["id"]])
+                          and r["payload"] == _payload(r["id"]),
+                          f"peer {pid} shard {sid}: point {r['id']} differs")
+        out["replica_reads"] = {"points": len(ids), "replicas_read": sum(
+            len(placement[s]) for s in by_shard)}
+
+        # 6. peer 3 fails, the cluster repairs itself, peer 3 comes back
+        victim = peers[2]
+        victim_port = victim.srv.port
+        held3 = sorted(victim.toc.get_collection(name).shards)
+        victim.stop()
+        live = peers[:2]
+        hits_d, _ = _concurrent_search(peers[0].base, name, q[:n_small], threads,
+                                       {"limit": 10})
+        recall_down = _recall(hits_d, truth[:n_small], 10)
+        check(recall_down >= 0.99, f"recall@10 {recall_down} < 0.99 with peer 3 down")
+        wall, acked, errors = pool.apply(
+            _load_client, (peers[0].base, put, npy, n, n + n_down, 1024, 4))
+        check(not errors and acked == n_down,
+              f"with peer 3 down: {acked} of {n_down} acknowledged, {errors[:3]}")
+        # the failed fan-out confirms peer 3's replicas dead, and the leader
+        # moves each to the live peer that lacked it (a stream transfer)
+
+        def repaired():
+            pl = live[0].toc.get_collection(name).placement
+            if any(victim.peer_id in v for v in pl.values()):
+                return False
+            if any(p.toc.get_collection(name).placement != pl for p in live):
+                return False
+            return all(len(set(_replica_counts(live, name, s).values())) == 1
+                       and len(_replica_counts(live, name, s)) == len(pl[s]) for s in pl)
+
+        repair_s = _wait(repaired, 600, "the repair of peer 3's replicas", step=0.25)
+        peers[2] = victim = _Peer(3, victim.path, port=victim_port)
+        t0 = time.perf_counter()
+        victim.join(urls, tick)
+        leader = _leader(peers)
+        _wait(lambda: victim.node.raft.commit_index == leader.node.raft.commit_index
+              and victim.toc.get_collection(name).placement
+              == live[0].toc.get_collection(name).placement, 120, "peer 3's rejoin")
+        rejoin_s = time.perf_counter() - t0
+        placement = live[0].toc.get_collection(name).placement
+        for sid in placement:
+            counts = _replica_counts(peers, name, sid)
+            check(sorted(counts) == sorted(placement[sid]) and len(set(counts.values())) == 1,
+                  f"after the repair shard {sid} replicas hold {counts}")
+        placed3 = {s for s, v in placement.items() if victim.peer_id in v}
+        _wait(lambda: set(victim.toc.get_collection(name).shards) == placed3, 60,
+              "peer 3 dropping the replicas moved away from it")
+        total = n + n_down
+        for p in peers:
+            cnt = _call(p.base, "POST", f"/collections/{name}/points/count", {})["count"]
+            check(cnt == total, f"peer {p.peer_id} counts {cnt} of {total}")
+        got = _call(victim.base, "POST", f"/collections/{name}/points",
+                    {"ids": list(range(n, total)), "with_vector": True, "with_payload": True})
+        check(sorted(r["id"] for r in got) == list(range(n, total))
+              and all(np.array_equal(np.asarray(r["vector"], np.float32), x_all[r["id"]])
+                      for r in got),
+              "the points written while peer 3 was down do not read back through it")
+        out["failure"] = {
+            "recall_at_10_peer3_down": recall_down, "upserts_peer3_down": n_down,
+            "upsert_s": wall, "repair_s": repair_s, "rejoin_s": rejoin_s,
+            "peer3_shards_before": held3, "peer3_shards_after": sorted(placed3),
+            "placement_after": {str(k): v for k, v in placement.items()}}
+
+        # 7. a fourth peer, started by the entry point, receives a replica
+        port4 = _free_port()
+        uri4 = f"http://127.0.0.1:{port4}"
+        env = {**os.environ, "QDRANT__TELEMETRY_DISABLED": "true",
+               "QDRANT__SERVICE__GRPC_PORT": "0"}
+        log4 = open(os.path.join(storage, "peer4.log"), "w")
+        t0 = time.perf_counter()
+        fourth = subprocess.Popen(
+            [sys.executable, "-m", "qdrant_tpu_torch", "--storage-dir",
+             os.path.join(storage, "peer4"), "--host", "127.0.0.1", "--http-port", str(port4),
+             # a follower refuses the join (NotLeader), as in the JAX package
+             "--uri", uri4, "--bootstrap", _leader(peers).base],
+            cwd=ROOT, env=env, stdout=log4, stderr=subprocess.STDOUT)
+
+        def joined():
+            if fourth.poll() is not None:
+                log4.flush()
+                raise SmokeError(f"the fourth peer exited with {fourth.returncode}: "
+                                 + open(log4.name).read()[-3000:])
+            return all(len(_call(b, "GET", "/cluster")["peers"]) == 4
+                       for b in (peers[0].base, uri4)) and _call(
+                uri4, "GET", f"/collections/{name}")
+
+        _wait(joined, 240, "the fourth peer's join", step=0.5)
+        # a replica may be placed on it only once it has applied the whole
+        # log: the transfer's driver starts streaming when it applies the
+        # replicate op, and gives up without a word after 40 quick failures
+        # while the target has not created the shard yet
+        leader = _leader(peers)
+        _wait(lambda: _call(uri4, "GET", "/cluster")["raft_info"]["commit"]
+              >= leader.node.raft.commit_index, 240, "the fourth peer's catch-up", step=0.5)
+        start4_s = time.perf_counter() - t0
+        id4 = int(_call(uri4, "GET", "/cluster")["peer_id"])
+        sid = 0
+        holder = next(p for p in peers if p.peer_id == min(placement[sid]))
+        # a failed attempt is retried by the driver without a word: keep what
+        # each attempt raised, to report it if the replica never turns ACTIVE
+        from qdrant_tpu_torch.cluster import transfer as transfer_mod
+
+        attempts, stream = [], transfer_mod.transfer_shard_stream_records
+
+        def recorded(*a, **k):
+            try:
+                moved = stream(*a, **k)
+                attempts.append(f"streamed {moved}")
+                return moved
+            except Exception as exc:
+                attempts.append(repr(exc)[:200])
+                raise
+
+        transfer_mod.transfer_shard_stream_records = recorded
+        t0 = time.perf_counter()
+        _call(_leader(peers).base, "POST", f"/collections/{name}/cluster", {
+            "replicate_shard": {"shard_id": sid, "from_peer_id": holder.peer_id,
+                                "to_peer_id": id4}})
+        # writes begin once the target holds the shard: the source applies
+        # the op first and fans writes out to the new replica at once, and a
+        # write that reaches the target before it has created the shard
+        # marks the new replica dead and moves it elsewhere (ROADMAP queue 3)
+        _wait(lambda: sid in [s["shard_id"] for s in _call(
+            uri4, "GET", f"/collections/{name}/cluster")["local_shards"]], 120,
+            "the fourth peer's empty replica", step=0.05)
+        driving = bool(holder.node.active_transfers)
+        check(driving, "the transfer ended before the writes began")
+        during = pool.apply_async(_load_client, (peers[0].base, put, npy, total,
+                                                 total + n_during, 64, 1))
+        _, acked_w, errors_w = during.get(timeout=600)
+        check(not errors_w and acked_w == n_during,
+              f"during the transfer: {acked_w} of {n_during} acknowledged, {errors_w[:3]}")
+
+        def transfer_state():
+            rs = holder.toc.get_collection(name).replica_sets[sid]
+            ci = _call(uri4, "GET", f"/collections/{name}/cluster")
+            return {"state": str(rs.states.get(id4)),
+                    "driving": [list(k) for k in holder.node.active_transfers],
+                    "holder_points": holder.toc.get_collection(name).shards[sid].point_count(),
+                    "fourth_points": [s["points_count"] for s in ci["local_shards"]
+                                      if s["shard_id"] == sid],
+                    "commit": {"peers": [p.node.raft.commit_index for p in peers],
+                               "fourth": _call(uri4, "GET", "/cluster")["raft_info"]["commit"]}}
+
+        def transferred():
+            st = transfer_state()
+            return (st["state"] == str(ReplicaState.ACTIVE) and not st["driving"]
+                    and st["fourth_points"] == [st["holder_points"]])
+
+        try:
+            _wait(transferred, 300, "the transfer to the fourth peer", step=0.25)
+        except SmokeError as exc:  # say where it stopped
+            log4.flush()
+            raise SmokeError(f"{exc}: {json.dumps(transfer_state())}; attempts "
+                             f"{attempts[:5]} ... {attempts[-3:]} ({len(attempts)}); the fourth "
+                             "peer's log ends: " + open(log4.name).read()[-4000:]) from exc
+        finally:
+            transfer_mod.transfer_shard_stream_records = stream
+        out_attempts = attempts[-5:]
+        transfer_s = time.perf_counter() - t0
+        moved = holder.toc.get_collection(name).shards[sid].point_count()
+        hits1, _ = _concurrent_search(peers[0].base, name, q[:n_small], threads, {"limit": 10})
+        hits4, _ = _concurrent_search(uri4, name, q[:n_small], threads, {"limit": 10})
+        check([[h["id"] for h in r] for r in hits4] == [[h["id"] for h in r] for r in hits1],
+              "the fourth peer answers with other ids than peer 1")
+        fourth.send_signal(signal.SIGTERM)
+        rc = fourth.wait(timeout=120)
+        check(rc == 0, f"the fourth peer exited with {rc}")
+        out["fourth_peer"] = {"start_and_join_s": start4_s, "shard": sid, "points": moved,
+                              "transfer_s": transfer_s, "points_per_s": moved / transfer_s,
+                              "upserts_during_transfer": acked_w, "stream_attempts": out_attempts,
+                              "exit_code": rc}
+        print(f"cluster transfer: {transfer_s:.2f} s, {moved / transfer_s:.1f} points/s",
+              flush=True)
+        return out
+    finally:
+        if fourth is not None and fourth.poll() is None:
+            fourth.kill()
+            fourth.wait()
+        if pool is not None:
+            pool.terminate()
+            pool.join()
+        for p in peers:
+            try:
+                p.stop()
+            except Exception:
+                pass  # stopped already (the failure check)
+
+
 def _exact_cosine(x, q, k, chunk=131072):
     """Numpy cosine brute force, independent of the port, in row chunks →
     (ids [B, k] best first, the unit-normalised rows)."""
@@ -1986,6 +2569,9 @@ def main() -> int:
                     "not under 100,000, only to find faults quickly)")
     ap.add_argument("--multi-docs", type=int, default=MULTI_DOCS,
                     help="documents of the multi phase (fewer only to find faults quickly)")
+    ap.add_argument("--cluster-points", type=int, default=CLUSTER_POINTS,
+                    help="points of the cluster phase (not under 208,896, or a "
+                    "replica's segment would not take the scan kernel)")
     ap.add_argument("--profile", metavar="DIR",
                     help="trace one extra REST window with torch.profiler into DIR")
     args = ap.parse_args()
@@ -2075,6 +2661,9 @@ def main() -> int:
             ("filtered_cosine_100k_100_b8", "filtered",
              dict(b=8, n=100_000, d=100, d_pad=128, euclid=False, deleted_frac=0.9)),
             ("rrf_dense_prefetch_b8", "rrf", rrf_kw),
+            # a shard replica of the cluster phase: a third of its points
+            ("cluster_shard_euclid_b8", "cluster",
+             dict(rest_kw, n=args.cluster_points // 3)),
             # rows too wide for a resident query tile: the queries stream
             ("wide_dot_65k_12288_b8", None,
              dict(b=8, n=65_536, d=12_288, euclid=False, deleted_frac=0.1)),
@@ -2123,9 +2712,6 @@ def main() -> int:
         sweep(gen, fs, card)
     storage_root = os.path.join(ROOT, "build")
     os.makedirs(storage_root, exist_ok=True)
-    # on-disk vector stores put their memmaps under the temp directory: keep
-    # them inside the checkout's ignored build/ directory
-    tempfile.tempdir = storage_root
     free_gb = shutil.disk_usage(storage_root).free / 1e9
     print(f"storage: {storage_root} ({free_gb:.1f} GB free)", flush=True)
     if "rest" in phases or "graph" in phases:
@@ -2170,11 +2756,9 @@ def main() -> int:
                           res["merge_launches"] + codes_only["merge_launches"])
     if "tier" in phases:
         storage = tempfile.mkdtemp(prefix="smoke_tier_", dir=storage_root)
-        tempfile.tempdir = storage  # the tier's memmaps go with its storage
         try:
             res = run_tier(rng, storage, fs, profile_dir=args.profile)
         finally:
-            tempfile.tempdir = storage_root
             shutil.rmtree(storage, ignore_errors=True)
         print(f"tier sq: {json.dumps(res['sq'])} ({card})", flush=True)
         print(f"tier tq: {json.dumps(res['tq'])} ({card})", flush=True)
@@ -2198,6 +2782,17 @@ def main() -> int:
         print(f"multi colbert: {json.dumps(res)} ({card})", flush=True)
         lap("multi")
         multi_launches = list(res["kernel_launches"].values())  # bf16, int8, merge
+    if "cluster" in phases:
+        storage = tempfile.mkdtemp(prefix="smoke_cluster_", dir=storage_root)
+        try:
+            res = run_cluster(rng, storage, fs, n=args.cluster_points,
+                              profile_dir=args.profile)
+        finally:
+            shutil.rmtree(storage, ignore_errors=True)
+        print(f"cluster sift: {json.dumps(res)} ({card})", flush=True)
+        lap("cluster")
+        launched["cluster"] = ("bf16", res["search"]["kernel_launches"],
+                               res["search"]["merge_launches"])
     check(not torch.backends.cuda.matmul.allow_tf32, "a phase turned TF32 matmuls on")
     check("jax" not in sys.modules, "the port imported jax")
     reference = sorted(m for m in sys.modules if m.split(".")[0] == "qdrant_tpu")

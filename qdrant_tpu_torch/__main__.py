@@ -5,8 +5,14 @@ API, and gRPC on `service.grpc_port` where the `grpc` package is installed
 (without it the server logs that gRPC did not start and serves REST), on the
 CUDA device. Without a card it refuses to start unless the CPU was asked for
 (`--force-cpu` or QDRANT_TPU_FORCE_CPU=1); then the kernels' plain versions
-run. Cluster mode is not ported yet: `--uri` and `--bootstrap` are refused
-(ROADMAP.md queue 1, item 4). Ctrl-C flushes all collections before exit.
+run. Ctrl-C flushes all collections before exit.
+
+Cluster mode (`--uri`; `cluster.enabled` without it is refused): the peer
+takes the id `--peer-id` or crc32 of `--uri`, joins an existing peer named
+by `--bootstrap` (POST /cluster/bootstrap, which commits it as a member and
+returns the membership), and runs a ClusterNode (Raft metadata consensus,
+replicated shards, remote search, shard transfer) whose log lives under
+<storage>/raft. Peer-to-peer traffic is HTTP on the REST port.
 """
 
 from __future__ import annotations
@@ -27,18 +33,15 @@ def main(argv=None) -> int:
     parser.add_argument("--storage-dir", help="override storage.storage_path")
     parser.add_argument("--http-port", type=int, help="override service.http_port")
     parser.add_argument("--host", help="override service.host")
-    parser.add_argument("--uri", help="cluster mode: not available in this package yet")
-    parser.add_argument("--bootstrap", help="cluster mode: not available in this package yet")
+    parser.add_argument("--uri", help="this peer's public URL (enables cluster mode)")
+    parser.add_argument("--bootstrap", help="URL of an existing peer to join")
+    parser.add_argument("--peer-id", type=int, help="stable peer id (default: derived from uri)")
     parser.add_argument(
         "--force-cpu", action="store_true", help="run on the CPU even when a GPU is present"
     )
     args = parser.parse_args(argv)
-    if args.uri or args.bootstrap:
-        parser.error(
-            "cluster mode (--uri / --bootstrap) is not ported to qdrant_tpu_torch "
-            "yet (ROADMAP.md queue 1, item 4: cluster); run `python -m qdrant_tpu` "
-            "for a cluster peer"
-        )
+    if args.bootstrap and not args.uri:
+        parser.error("--bootstrap needs --uri: the URL the other peers reach this one at")
 
     from .device import default_device, force_cpu
 
@@ -61,14 +64,14 @@ def main(argv=None) -> int:
         settings["service"]["http_port"] = args.http_port
     if args.host:
         settings["service"]["host"] = args.host
+    if settings.get_path("cluster.enabled", False) and not args.uri:
+        parser.error("cluster.enabled needs --uri: the URL the other peers reach this one at")
 
     logging.basicConfig(
         level=getattr(logging, str(settings.get("log_level", "INFO")).upper(), logging.INFO),
         format="%(asctime)s %(levelname)s %(name)s: %(message)s",
     )
     log = logging.getLogger("qdrant_tpu_torch")
-    if settings.get_path("cluster.enabled", False):
-        log.warning("cluster.enabled is set but cluster mode is not ported; serving standalone")
 
     on_disk_cfg = (settings.get("logger") or {}).get("on_disk") or {}
     if on_disk_cfg.get("enabled"):
@@ -123,11 +126,20 @@ def main(argv=None) -> int:
 
     host = settings.get_path("service.host", "127.0.0.1")
     port = int(settings.get_path("service.http_port", 6333))
+    api_key = settings.get_path("service.api_key")
+
+    cluster_node = None
+    if args.uri:
+        cluster_node = _start_cluster_node(args, settings, toc, storage_path, api_key)
+        log.info(
+            "cluster mode: peer %d at %s (%d peers)",
+            cluster_node.peer_id, args.uri, len(cluster_node.all_peer_ids()),
+        )
     server = RestServer(
         toc,
         host=host,
         port=port,
-        api_key=settings.get_path("service.api_key"),
+        api_key=api_key,
         read_only_api_key=settings.get_path("service.read_only_api_key"),
         static_content_dir=settings.get_path("service.static_content_dir", "./static"),
         enable_static_content=bool(settings.get_path("service.enable_static_content", True)),
@@ -155,7 +167,7 @@ def main(argv=None) -> int:
             toc,
             host=host,
             port=int(settings.get_path("service.grpc_port", 6334)),
-            api_key=settings.get_path("service.api_key"),
+            api_key=api_key,
             read_only_api_key=settings.get_path("service.read_only_api_key"),
         )
         grpc_server.start()
@@ -167,6 +179,8 @@ def main(argv=None) -> int:
         log.info("shutting down; flushing collections")
         if reporter is not None:
             reporter.stop()
+        if cluster_node is not None:
+            cluster_node.stop()
         if grpc_server is not None:
             grpc_server.stop(2)
         # serve_forever runs on this thread, which the handler interrupts:
@@ -181,6 +195,42 @@ def main(argv=None) -> int:
     finally:
         toc.close()
     return 0
+
+
+def _start_cluster_node(args, settings, toc, storage_path, api_key):
+    """This peer's ClusterNode: its id, the membership (this peer alone, or
+    what the `--bootstrap` peer returns after committing it as a member),
+    the Raft tick from `cluster.consensus.tick_period_ms`, the log under
+    <storage>/raft."""
+    import binascii
+    import json
+    import urllib.request
+
+    from .cluster.node import ClusterNode
+
+    peer_id = args.peer_id or (binascii.crc32(args.uri.encode()) & 0x7FFFFFFF)
+    peer_urls = {peer_id: args.uri}
+    if args.bootstrap:
+        req = urllib.request.Request(
+            args.bootstrap.rstrip("/") + "/cluster/bootstrap",
+            method="POST",
+            data=json.dumps({"peer_id": peer_id, "url": args.uri}).encode(),
+            headers={"Content-Type": "application/json",
+                     **({"api-key": api_key} if api_key else {})},
+        )
+        with urllib.request.urlopen(req, timeout=10) as resp:
+            peers = json.loads(resp.read())["result"]["peers"]
+        peer_urls.update({int(k): v for k, v in peers.items()})
+    node = ClusterNode(
+        peer_id,
+        toc,
+        peer_urls,
+        tick_period=float(settings.get_path("cluster.consensus.tick_period_ms", 100)) / 1000.0,
+        raft_storage=os.path.join(storage_path, "raft"),
+        api_key=api_key,
+    )
+    node.start()
+    return node
 
 
 if __name__ == "__main__":

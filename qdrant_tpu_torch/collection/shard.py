@@ -1,4 +1,11 @@
-"""LocalShard: WAL + segment lifecycle + scatter-gather search.
+"""LocalShard: WAL + segment lifecycle + scatter-gather search
+(counterpart of qdrant_tpu/collection/shard.py).
+
+The port's own copy differs from the JAX shard in one respect: every segment
+gets its directory (segments/seg_NNNNNN) when it is made, not at its first
+save, so an `on_disk` vector's working memmap lives there from its first row
+and goes with the directory when the segment is replaced, discarded or
+dropped (the JAX shard leaves it under the system temp directory).
 
 Reference: lib/collection/src/shards/local_shard/ (WAL replay, update
 pipeline shard_ops.rs:61) + lib/shard/src/segment_holder/ + the optimizer
@@ -18,6 +25,7 @@ lib/shard/src/optimizers/segment_optimizer.rs:489):
 
 from __future__ import annotations
 
+import bisect
 import os
 import shutil
 import threading
@@ -70,6 +78,7 @@ class LocalShard:
         self.clock_map = self._load_clock_map()
         self.segments: List[Segment] = []
         self._segment_dirs: Dict[int, str] = {}  # id(segment) → dir name
+        self._scroll_cache = None  # (segment states, int ids, str ids)
         self._seg_counter = 0
         # when True, updates never run the optimizer inline — a background
         # loop (TableOfContent._flush_loop) drives maybe_optimize() instead,
@@ -101,12 +110,26 @@ class LocalShard:
                 self._segment_dirs[id(seg)] = name
                 num = int(name.split("_")[-1])
                 self._seg_counter = max(self._seg_counter, num + 1)
+            elif name.startswith("seg_") and os.path.isdir(seg_path):
+                # made but never saved (its points are in the WAL): only a
+                # working memmap can be there
+                shutil.rmtree(seg_path, ignore_errors=True)
 
-    def _add_segment(self, seg: Segment) -> None:
+    def _new_segment(self, appendable: bool) -> Segment:
+        """An empty segment with its directory named: an `on_disk` vector's
+        working memmap is made there."""
         name = f"seg_{self._seg_counter:06d}"
         self._seg_counter += 1
+        return Segment(
+            self.params,
+            appendable=appendable,
+            storage_dir=os.path.join(self._segments_root(), name),
+        )
+
+    def _add_segment(self, seg: Segment) -> None:
+        """Join a segment made by `_new_segment` to the shard."""
         self.segments.append(seg)
-        self._segment_dirs[id(seg)] = name
+        self._segment_dirs[id(seg)] = os.path.basename(seg.storage_dir)
 
     def _replay_wal(self) -> None:
         from_version = min((s.version for s in self.segments), default=0) + 1
@@ -118,7 +141,7 @@ class LocalShard:
         # stamping it with the newest segment version keeps WAL replay
         # (which starts at min(segment versions)+1) from re-running the
         # whole log every restart
-        seg = Segment(self.params, appendable=True)
+        seg = self._new_segment(appendable=True)
         seg.version = max((s.version for s in self.segments), default=0)
         return seg
 
@@ -653,26 +676,44 @@ class LocalShard:
         offset_id: Optional[PointId] = None,
         flt: Optional[Filter] = None,
     ) -> List[PointId]:
-        """Points ordered by external id (ints first, then UUIDs)."""
+        """Points ordered by external id (ints first, then UUIDs), from
+        `offset_id` on. Without a filter the ordered ids are kept until a
+        segment changes, so a scroll in pages (a shard transfer) sorts once
+        and not once per page (which made a transfer quadratic in the
+        shard's points)."""
+        if flt is None:
+            state = [(seg, seg.version, len(seg)) for seg in self.segments]
+            cached = self._scroll_cache
+            if cached is None or len(cached[0]) != len(state) or any(
+                a[0] is not b[0] or a[1:] != b[1:] for a, b in zip(cached[0], state)
+            ):
+                cached = self._scroll_cache = (state, *self._sorted_ids(None))
+            ints, strs = cached[1], cached[2]
+        else:
+            ints, strs = self._sorted_ids(flt)
+        if offset_id is None:
+            ordered = ints + strs if len(ints) < limit else ints
+        elif isinstance(offset_id, int):
+            start = bisect.bisect_left(ints, offset_id)
+            ordered = ints[start : start + limit]
+            if len(ordered) < limit:
+                ordered = ordered + strs
+        else:
+            ordered = strs[bisect.bisect_left(strs, offset_id):]
+        return ordered[:limit]
+
+    def _sorted_ids(self, flt: Optional[Filter]) -> Tuple[List[int], List[str]]:
+        """(int ids ascending, UUID ids ascending) of the points `flt` keeps."""
         all_ids: List[PointId] = []
         for seg in self.segments:
             mask = seg.filter_mask(flt)
             for ext in seg.id_tracker.iter_sorted_external():
-                internal = seg.id_tracker.internal_id(ext)
+                internal = seg.id_tracker.internal_id(ext) if mask is not None else None
                 if mask is None or (internal is not None and internal < len(mask) and mask[internal]):
                     all_ids.append(ext)
         ints = sorted(x for x in all_ids if isinstance(x, int))
         strs = sorted(x for x in all_ids if isinstance(x, str))
-        ordered = ints + strs
-        if offset_id is not None:
-            key = (0, offset_id, "") if isinstance(offset_id, int) else (1, 0, offset_id)
-
-            def at_least(x):
-                kx = (0, x, "") if isinstance(x, int) else (1, 0, x)
-                return kx >= key
-
-            ordered = [x for x in ordered if at_least(x)]
-        return ordered[:limit]
+        return ints, strs
 
     # ------------------------------------------------------------------
     # optimizer (reference: optimizers/segment_optimizer.rs plan/execute)
@@ -706,7 +747,10 @@ class LocalShard:
                 if any(v not in self.segments for v in victims) or [
                     v.version for v in victims
                 ] != versions:
-                    continue  # a write landed on a victim mid-build — replan
+                    # a write landed on a victim mid-build: drop the result
+                    # (and its directory) and replan
+                    shutil.rmtree(new_seg.storage_dir, ignore_errors=True)
+                    continue
                 self._swap(victims, new_seg)
             did = True
         return did
@@ -743,7 +787,7 @@ class LocalShard:
     def _defragment_into(self, sources: List[Segment], appendable: bool) -> Segment:
         """New segment from the live points of `sources` (drops deleted rows —
         the reference SegmentBuilder::update collect phase)."""
-        seg = Segment(self.params, appendable=appendable)
+        seg = self._new_segment(appendable)
         for src in sources:
             for field, p in src.payload_index.indexed_fields().items():
                 if field not in seg.payload_index.indexed_fields():
@@ -867,7 +911,7 @@ class LocalShard:
         self._seg_counter = 0
         self._load_segments()
         if not any(s.appendable for s in self.segments):
-            self._add_segment(Segment(self.params, appendable=True))
+            self._add_segment(self._new_segment(appendable=True))
         # snapshot supersedes local WAL history
         self.wal.ack(self.wal.next_op_num - 1)
 

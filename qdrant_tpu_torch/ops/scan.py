@@ -210,7 +210,14 @@ def scan_search_sq_rescore(
     k: int,
     euclid: bool,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """int8 blocked scan + exact f32 rescore of its k_fetch winners."""
+    """int8 blocked scan + exact f32 rescore of its k_fetch winners (the
+    port of `qdrant_tpu/ops/scan.py::scan_search_sq_rescore`).
+
+    No search path calls it: an in-RAM SQ segment takes the fused scan's
+    int8 mode, and the quantized-primary tier scans with `scan_search_sq_flat`
+    and rescores on the host from the memmap (`Segment._host_rescore`), since
+    its f32 rows are not on the device. It is kept as the JAX package's
+    device-resident rescore, held to it by tests/test_torch_tiered.py."""
     _, cand = scan_search_sq(
         q_codes, q_norms, codes, norms, scale, mask, blk, k_fetch, euclid
     )

@@ -173,9 +173,15 @@ class SearchParams:
 
 
 class Segment:
-    def __init__(self, params: CollectionParams, appendable: bool = True):
+    def __init__(
+        self, params: CollectionParams, appendable: bool = True,
+        storage_dir: Optional[str] = None,
+    ):
         self.params = params
         self.appendable = appendable
+        # the directory the segment is saved to: an on_disk vector keeps its
+        # working memmap there (without one, under the system temp directory)
+        self.storage_dir = storage_dir
         self.version = 0  # max applied op_num
         self.id_tracker = IdTracker()
         self.payload_storage = PayloadStorage()
@@ -197,9 +203,7 @@ class Segment:
             if vp.multivector_config is not None:
                 self.multi[name] = MultiVectorStore(vp.size, vp.distance, vp.datatype)
             else:
-                self.dense[name] = DenseVectorStore(
-                    vp.size, vp.distance, vp.datatype, on_disk=vp.on_disk
-                )
+                self.dense[name] = self._dense_store(name, vp)
         for name, sp in params.sparse_vectors.items():
             self.sparse[name] = SparseVectorStore()
             self.sparse_index[name] = SparseIndex(self.sparse[name], sp.modifier)
@@ -223,12 +227,19 @@ class Segment:
             _add_deleted_multi(store, n)
             self.multi[name] = store
             return
-        store = DenseVectorStore(vp.size, vp.distance, vp.datatype, on_disk=vp.on_disk)
+        store = self._dense_store(name, vp)
         if n:
             offs = store.add(np.zeros((n, vp.size), dtype=np.float32))
             for off in offs:
                 store.delete(int(off))
         self.dense[name] = store
+
+    def _dense_store(self, name: str, vp: VectorParams) -> DenseVectorStore:
+        sub = None
+        if vp.on_disk and self.storage_dir is not None:
+            sub = os.path.join(self.storage_dir, f"dense_{_safe(name)}")
+        return DenseVectorStore(vp.size, vp.distance, vp.datatype, on_disk=vp.on_disk,
+                                storage_dir=sub)
 
     def drop_vector_name(self, name: str) -> None:
         if name not in self.dense and name not in self.multi:
@@ -1241,7 +1252,7 @@ class Segment:
             meta = json.load(f)
         meta = _migrate_segment_meta(meta, path)
         params = CollectionParams.from_dict(meta["params"])
-        seg = cls(params, appendable=meta["appendable"])
+        seg = cls(params, appendable=meta["appendable"], storage_dir=path)
         seg.version = meta["version"]
         seg.deferred = set(meta.get("deferred", []))
         seg.id_tracker = IdTracker.load(path)

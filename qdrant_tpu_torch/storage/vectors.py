@@ -6,6 +6,13 @@ memmap-able for persistence); searches run against a lazily synchronized
 device tensor in the configured scoring dtype, padded to a power-of-two
 capacity. The on-disk format is the JAX package's, so a storage directory
 written by either package opens in the other.
+
+An `on_disk` store given a `storage_dir` (its segment's `dense_<name>`
+directory) works in that directory's `vectors.f32`, the file it is saved as:
+growth writes the larger file beside it and renames it over, and a save to
+the same directory flushes the map instead of rewriting the file under it
+(the JAX store rewrites it, which zeroes a store loaded from that file).
+Without a directory the working file goes under the system temp directory.
 """
 
 from __future__ import annotations
@@ -86,30 +93,33 @@ class DenseVectorStore:
         return self._count - self._deleted_count
 
     def _alloc(self, cap: int) -> np.ndarray:
+        """A [cap, D] array holding the current rows."""
         if not self.on_disk:
-            return np.zeros((cap, self.dim), dtype=np.float32)
+            data = np.zeros((cap, self.dim), dtype=np.float32)
+            data[: self._count] = self._data[: self._count]
+            return data
         if self._disk_dir is None:
             import tempfile
 
             self._disk_dir = tempfile.mkdtemp(prefix="qtpu_vecs_")
         os.makedirs(self._disk_dir, exist_ok=True)
-        path = os.path.join(self._disk_dir, f"vectors_{cap}.f32")
-        mm = np.memmap(path, dtype=np.float32, mode="w+", shape=(cap, self.dim))
-        old = self._disk_path
+        path = os.path.join(self._disk_dir, "vectors.f32")
+        grow = path + ".grow"
+        mm = np.memmap(grow, dtype=np.float32, mode="w+", shape=(cap, self.dim))
+        for i in range(0, self._count, 1 << 16):
+            end = min(i + (1 << 16), self._count)
+            mm[i:end] = self._data[i:end]
+        mm.flush()
+        del mm
+        os.replace(grow, path)  # the old map keeps the old file until dropped
         self._disk_path = path
-        if old is not None and old != path:
-            try:
-                os.unlink(old)
-            except OSError:
-                pass
-        return mm
+        return np.memmap(path, dtype=np.float32, mode="r+", shape=(cap, self.dim))
 
     def _ensure_capacity(self, n: int) -> None:
         if n <= self._data.shape[0]:
             return
         cap = _round_capacity(n)
         data = self._alloc(cap)
-        data[: self._count] = self._data[: self._count]
         self._data = data
         deleted = np.zeros((cap,), dtype=bool)
         deleted[: self._count] = self._deleted[: self._count]
@@ -234,6 +244,11 @@ class DenseVectorStore:
             if isinstance(self._data, np.memmap):
                 self._data.flush()
             dst = os.path.join(path, "vectors.f32")
+            if self._disk_path is not None and os.path.exists(dst) and os.path.samefile(
+                dst, self._disk_path
+            ):
+                self._save_meta(path)  # the working file is the saved one
+                return
             out = np.memmap(
                 dst, dtype=np.float32, mode="w+",
                 shape=(max(self._count, 1), self.dim),
@@ -243,11 +258,16 @@ class DenseVectorStore:
                 end = min(i + step, self._count)
                 out[i:end] = self._data[i:end]
             out.flush()
-            with open(os.path.join(path, "vectors.meta"), "w") as f:
-                f.write(f"{self._count} {self.dim} on_disk")
-            np.save(os.path.join(path, "deleted.npy"), self._deleted[: self._count])
+            self._save_meta(path)
             return
         np.save(os.path.join(path, "vectors.npy"), self._data[: self._count])
+        np.save(os.path.join(path, "deleted.npy"), self._deleted[: self._count])
+
+    def _save_meta(self, path: str) -> None:
+        """The on-disk form's row count and deleted flags beside vectors.f32,
+        which holds at least that many rows."""
+        with open(os.path.join(path, "vectors.meta"), "w") as f:
+            f.write(f"{self._count} {self.dim} on_disk")
         np.save(os.path.join(path, "deleted.npy"), self._deleted[: self._count])
 
     @classmethod
@@ -262,16 +282,16 @@ class DenseVectorStore:
             store = cls(dim, distance, datatype, on_disk=True, storage_dir=path)
             deleted = np.load(os.path.join(path, "deleted.npy"))
             if n:
+                store._disk_path = os.path.join(path, "vectors.f32")
                 store._data = np.memmap(
-                    os.path.join(path, "vectors.f32"), dtype=np.float32,
-                    mode="r+", shape=(n, dim),
+                    store._disk_path, dtype=np.float32, mode="r+", shape=(n, dim),
                 )
-                store._disk_path = None  # segment-owned file: never unlink
             store._deleted = deleted.copy()
             store._count = n
             store._deleted_count = int(deleted.sum())
             return store
-        store = cls(dim, distance, datatype, on_disk=on_disk)
+        store = cls(dim, distance, datatype, on_disk=on_disk,
+                    storage_dir=path if on_disk else None)
         data = np.load(
             os.path.join(path, "vectors.npy"),
             mmap_mode="r" if on_disk else None,

@@ -206,7 +206,6 @@ def _normalised(pkg: str, rel: str):
 
 COPIED = [
     # the REST / collection shell
-    "collection/shard.py",
     "collection/collection.py",
     "collection/query.py",
     "api/toc.py",
@@ -221,8 +220,12 @@ COPIED = [
     "api/webui.py",
     "cluster/__init__.py",
     "cluster/clock.py",
+    "cluster/consensus.py",
+    "cluster/node.py",
     "cluster/raft.py",
+    "cluster/remote.py",
     "cluster/replica_set.py",
+    "cluster/transfer.py",
     "collection/formula.py",
     "collection/hash_ring.py",
     "collection/sampling.py",
@@ -264,7 +267,7 @@ def test_copied_shell_equals_original(rel):
 
 # modules the port rewrote for torch (not copies), and empty package markers
 PORTED = {
-    "__init__.py", "__main__.py", "index/hnsw.py", "index/plain.py", "index/sparse.py",
+    "__init__.py", "__main__.py", "collection/shard.py", "index/hnsw.py", "index/plain.py", "index/sparse.py",
     "ops/distances.py", "ops/hnsw.py", "ops/hnsw_build.py", "ops/hnsw_inline.py",
     "ops/quantization.py", "ops/scan.py", "ops/sparse.py",
     "storage/segment.py", "storage/vectors.py", "tools/segment_inspector.py",
