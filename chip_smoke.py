@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch / CUDA port (qdrant_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py [--seed 0] [--phases build,kernel,rest,graph,filtered,sq,tier,sparse,multi,cluster]
+    python3 chip_smoke.py [--seed 0] [--phases build,kernel,rest,graph,mesh,filtered,sq,tier,sparse,multi,cluster]
     python3 chip_smoke.py --phases build,graph     # the graph path alone (the short call)
+    python3 chip_smoke.py --phases build,mesh      # the 4-shard mesh path alone
     python3 chip_smoke.py --phases build,multi     # the multivector path alone
     python3 chip_smoke.py --phases build,cluster   # the cluster path alone
     python3 chip_smoke.py --phases build,sweep     # tuning only, not run by default
@@ -35,7 +36,8 @@ Phases, each printing its numbers on its own line:
              (filtered) and 8 x --sparse-rows x 128 euclid (the RRF queries'
              dense prefetch; at 1,000,000 rows it is the rest launch and is
              compared once), 8 x --cluster-points / 3 x 128 euclid (a shard
-             replica of the cluster phase); and 8 x 65,536 x 12,288 dot, rows
+             replica of the cluster phase), 8 x 65,536 x 128 euclid (one of
+             the mesh phase's four shards); and 8 x 65,536 x 12,288 dot, rows
              too wide for resident queries. Survivor
              scores must agree within a worst-case f32 summation-order bound
              and ids must be equal wherever the class winner beats the
@@ -76,6 +78,34 @@ Phases, each printing its numbers on its own line:
              not fit). Then the graph programs on `cuda` against the same
              functions on `cpu` over a 20,000-row slice, and the device time
              and launches of one beam turn and one insert round.
+   mesh      the device mesh (parallel/mesh.py) on MESH_SHARDS = 4 logical
+             shards of the card (device.set_logical_devices, the counterpart
+             of XLA's forced host device count, on which the JAX package ran
+             its mesh). The first MESH_ROWS = 262,144 of the rest phase's
+             1,000,000 x 128 rows (--mesh-rows; cut for the script's time)
+             and its queries, bulk-ingested into a second
+             collection made with the 4-shard mesh set and sealed by the
+             optimizer: the vector's ScanIndex must be on the 4-shard mesh
+             and the graph a 4-shard ShardedHnswIndex built on the device
+             (the sharded build's seconds, per shard). 64 default searches
+             from 8 threads: recall@10 >= 0.99, scores exact to 1e-4, the
+             bf16 scan and the merge kernels launched 4 times a batch (once
+             per shard; batches counted at parallel/mesh.py
+             sharded_scan_rescore), the window traced for its idle share;
+             64 at `hnsw_ef` 128: recall@10 >= 0.90, every score exact, the
+             level beam on every shard and no scan kernel. The four programs
+             at the mesh's shapes (the JAX package's `dryrun_multichip`): the
+             scan + rescore and the exact search on 4 shards of 65,536 rows
+             against one shard (rescored rows bit for bit where the bins kept
+             the same ids), the beam and one build step over the sealed
+             graph's shards on the card against each shard alone (equal)
+             and the CPU. The sealed segment saved by the shard's flush when
+             the server closes, loaded on the same mesh (the same ids at ef
+             128) and on a 2-shard mesh (the graph rebuilt, recall@10 >=
+             0.90). With
+             more than one card the serving part runs once more over the
+             cards; on one it prints that copies between cards were not
+             exercised.
 4. filtered  100,000 x 100 cosine points with a keyword payload index
              matching 10% of them and `filter.must match` searches: every
              hit matches and recall@10 >= 0.99 against exact (a correctness
@@ -204,6 +234,7 @@ and prints no result; it refuses to run without CUDA.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import shutil
@@ -218,8 +249,8 @@ import urllib.request
 import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-ALL_PHASES = ("build", "kernel", "rest", "graph", "filtered", "sq", "tier", "sparse", "multi",
-              "cluster")
+ALL_PHASES = ("build", "kernel", "rest", "graph", "mesh", "filtered", "sq", "tier", "sparse",
+              "multi", "cluster")
 EXTRA_PHASES = ("sweep",)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet)
 PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12}  # dense tensor-core peaks
@@ -244,6 +275,14 @@ MULTI_DOCS = 16_384
 # 242-387 s, the whole script up to 1,198 s of its 1,200)
 CLUSTER_POINTS = 212_992
 CLUSTER_LOAD_THRESHOLD = 10**9  # indexing_threshold while loading: no seal
+# logical shards of the mesh phase (device.set_logical_devices): the sift1m
+# rows split as JAX's mesh splits them, on the one card
+MESH_SHARDS = 4
+# rows of the mesh phase, a prefix of the rest phase's 1,000,000: at all of
+# them the phase took 187.6 s and the whole script 1,141.6 s of its 1,200;
+# at 524,288 100.6 s and 996.7 s, under 100 s short of the limit on a host
+# 25-30% slower (such hosts have run this script); 65,536 rows a shard
+MESH_ROWS = 262_144
 
 
 class SmokeError(RuntimeError):
@@ -758,11 +797,11 @@ def _graph_stats(index, n):
             "level_counts": {str(k): v for k, v in index.level_counts.items()}}
 
 
-def _graph_window(base, x, q, truth, ef, threads, extra=None, label="graph"):
+def _graph_window(base, x, q, truth, ef, threads, extra=None, label="graph", coll="sift1m"):
     """`points/search` with params.hnsw_ef through REST → (hits, numbers)."""
     body = {"limit": 10, "params": {"hnsw_ef": ef, **(extra or {}).get("params", {})},
             **{k: v for k, v in (extra or {}).items() if k != "params"}}
-    hits, wall = _concurrent_search(base, "sift1m", q, threads, body)
+    hits, wall = _concurrent_search(base, coll, q, threads, body)
     check(all(len(h) == 10 for h in hits), f"a {label} search returned fewer than 10 hits")
     check(all(len({p["id"] for p in h}) == 10 for h in hits), f"a {label} search repeats an id")
     worst = _euclid_score_err(hits, x, q)
@@ -814,6 +853,7 @@ def run_rest(rng, storage, fs, phases, n=1_000_000, d=128, n_queries=64, threads
               f"{[(len(s), s.appendable) for s in coll.shards[0].segments]}")
         seg = sealed[0]
         truth = _exact_topk(x, q, 10, "euclid")
+        out["data"] = (x, q, truth)  # the mesh phase serves the same rows
         if "rest" in phases:
             _concurrent_search(base, "sift1m", q[:1], 1, {"limit": 10})  # warm-up
             fs.fused_scan_survivors.launches = fs.merge_survivors.launches = 0
@@ -934,6 +974,286 @@ def run_rest(rng, storage, fs, phases, n=1_000_000, d=128, n_queries=64, threads
     finally:
         srv.shutdown()
         toc.close()
+
+
+# ---------------------------------------------------------------------------
+# the mesh phase: the sift1m rows over a 4-shard mesh of one card
+# ---------------------------------------------------------------------------
+
+
+def _mesh_programs(fs, x, q, graph, b=8, k=10):
+    """The four parallel/mesh.py programs at the mesh's shapes (the JAX
+    package's `dryrun_multichip`, on the card): the scan + rescore and the
+    exact search on 4 logical shards against the same call on one shard;
+    over the sealed graph's shards, the beam search against each shard's
+    beam alone and against the CPU, one build step against each shard's
+    step alone → dict of numbers."""
+    import torch
+
+    from qdrant_tpu_torch.parallel import mesh as pmesh
+
+    # the phase's 4-shard mesh (4 logical shards of one card, or the cards)
+    four, cpu = graph.mesh, torch.device("cpu")
+    cuda = four.devices[0]
+    one = pmesh.Mesh((cuda,))
+    n_local = min(65_536, len(x) // 4 // 4096 * 4096)
+    rows = torch.from_numpy(x[: 4 * n_local]).to(cuda)
+    qd = torch.from_numpy(q[:b]).to(cuda)
+    out = {"scan_rows_per_shard": n_local, "queries": b}
+
+    def timed(fn):
+        for dv in set(four.devices):
+            torch.cuda.synchronize(dv)
+        t0 = time.perf_counter()
+        res = fn()
+        for dv in set(four.devices):
+            torch.cuda.synchronize(dv)
+        return res, (time.perf_counter() - t0) * 1e3
+
+    # scan + rescore: the same k_fetch makes the rescore one [B, k_fetch, D]
+    # program on both sides, so rows whose bins kept the same ids are equal
+    # bit for bit
+    v = (2.0 * rows).to(torch.bfloat16)
+    bias = -(rows * rows).sum(1)
+    split = lambda t: pmesh.shard_rows(t, four)  # noqa: E731
+    s1, i1 = pmesh.sharded_scan_rescore(one, qd, [v], [bias], [rows], 4096, 2 * k, k, True)
+    fs.fused_scan_survivors.launches = 0
+    (s4, i4), ms = timed(lambda: pmesh.sharded_scan_rescore(
+        four, qd, split(v), split(bias), split(rows), 4096, 2 * k, k, True))
+    check(fs.fused_scan_survivors.launches == 4,
+          f"sharded_scan_rescore launched {fs.fused_scan_survivors.launches} scans, not 4")
+    fs.fused_scan_survivors.launches = 0
+    s1, i1, s4, i4 = (t.cpu().numpy() for t in (s1, i1, s4, i4))
+    same = [r for r in range(b) if set(i1[r]) == set(i4[r])]
+    check(len(same) >= b - 2 and np.array_equal(i1[same], i4[same])
+          and np.array_equal(s1[same].view(np.int32), s4[same].view(np.int32)),
+          "sharded_scan_rescore on 4 shards differs from one shard")
+    out["sharded_scan_rescore"] = {"ms": ms, "rows_bit_equal": len(same)}
+    # exact search
+    valid = torch.ones(len(rows), dtype=torch.bool, device=cuda)
+    e1 = pmesh.sharded_exact_search(one, qd, [rows], [valid], "Euclid", k)
+    e4, ms = timed(lambda: pmesh.sharded_exact_search(four, qd, split(rows), split(valid),
+                                                      "Euclid", k))
+    cancel = float((x[: 4 * n_local] ** 2).sum(1).max() + (q[:b] ** 2).sum(1).max())
+    err, n_diff, _ = _same_beam(*(t.cpu().numpy() for t in (*e4, *e1)), magnitude=cancel)
+    out["sharded_exact_search"] = {"ms": ms, "score_err_over_tol": err,
+                                   "ids_differing_at_ties": n_diff}
+    del rows, v, bias, valid
+    # the graph programs over the sealed index's shards, cuda against cpu
+    host = pmesh.Mesh((cpu,) * graph.n_shards)
+    v_cpu = [t.cpu() for t in graph._v]
+    l_cpu = [t.cpu() for t in graph._links]
+    ent = [int(e) for e in graph._entries]
+    g, ms = timed(lambda: pmesh.sharded_hnsw_search(four, qd, graph._v, graph._links,
+                                                    ent, None, "Euclid", 64, k))
+    c = pmesh.sharded_hnsw_search(host, qd.cpu(), v_cpu, l_cpu, ent, None, "Euclid", 64, k)
+    err, n_diff, shared = _same_beam(*(t.cpu().numpy() for t in (*g, *c)))
+    check(shared >= 0.95, f"the sharded beams share {shared} of their ids (cuda / cpu)")
+    # ... and against each shard's beam alone, offset and merged here
+    alone = [pmesh.Mesh((dv,)) for dv in four.devices]  # each shard by itself
+    parts = [pmesh.sharded_hnsw_search(alone[s], qd, [graph._v[s]], [graph._links[s]],
+                                       [ent[s]], None, "Euclid", 64, k)
+             for s in range(graph.n_shards)]
+    flat_s = np.concatenate([p[0].cpu().numpy() for p in parts], axis=1)
+    flat_i = np.concatenate([np.where(p[1].cpu().numpy() >= 0,
+                                      p[1].cpu().numpy() + s * graph.n_per_shard, -1)
+                             for s, p in enumerate(parts)], axis=1)
+    order = np.argsort(-flat_s, axis=1, kind="stable")[:, :k]
+    check(np.array_equal(np.take_along_axis(flat_i, order, 1), g[1].cpu().numpy()),
+          "the sharded beam differs from the shards' beams alone, merged")
+    out["sharded_hnsw_search"] = {"ms": ms, "ef": 64, "score_err_over_tol": err,
+                                  "shared_ids_with_cpu": shared}
+    # one build step on every shard at once against each shard alone (a
+    # one-shard mesh on its device: the same launches, so equal rows)
+    bb, npl = 64, graph.n_per_shard
+    batch = [torch.from_numpy(x[s * npl : s * npl + bb]).to(dv)
+             for s, dv in enumerate(four.devices)]
+    m = graph.config.m0
+    sel, ms = timed(lambda: pmesh.sharded_build_step(
+        four, batch, graph._v, graph._links, ent, "Euclid", 128, m))
+    sel_alone = [pmesh.sharded_build_step(alone[s], [batch[s]], [graph._v[s]],
+                                          [graph._links[s]], [ent[s]], "Euclid", 128, m)[0]
+                 for s in range(graph.n_shards)]
+    check(all(torch.equal(a, b_) for a, b_ in zip(sel, sel_alone)),
+          "the sharded build step differs from each shard's step alone")
+    out["sharded_build_step"] = {"ms": ms, "batch_per_shard": bb, "ef_construct": 128,
+                                 "m0": m}
+    return out
+
+
+def _mesh_serve(base, toc, fs, coll, x, q, truth, threads, profile_dir):
+    """Bulk-ingest x into `coll` on the process's mesh, seal it, and serve
+    default and `hnsw_ef` 128 searches through REST → (numbers, sealed
+    segment)."""
+    import torch
+
+    from qdrant_tpu_torch.index.hnsw import ShardedHnswIndex
+    from qdrant_tpu_torch.parallel import mesh as pmesh
+
+    n, d = x.shape
+    mesh = pmesh.make_mesh()
+    _call(base, "PUT", f"/collections/{coll}", {"vectors": {"size": d, "distance": "Euclid"}})
+    collection = toc.get_collection(coll)
+    t0 = time.perf_counter()
+    collection.bulk_ingest(list(range(n)), {"": x})
+    ingest_s = time.perf_counter() - t0
+    gc.collect()  # an earlier phase's segments, held in cycles, must not count here
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    toc.optimize_all()
+    seal_s = time.perf_counter() - t0
+    seal_peak = torch.cuda.max_memory_allocated()
+    seg, = [s for s in collection.shards[0].segments if not s.appendable and len(s) == n]
+    scan = seg.dense[""].scan_index()
+    check(scan.mesh is not None and scan.mesh.size == mesh.size,
+          f"the sealed scan is not on the {mesh.size}-shard mesh: {scan.mesh}")
+    graph = seg.hnsw.get("")
+    check(isinstance(graph, ShardedHnswIndex) and graph.n_shards == mesh.size,
+          f"the seal built {type(graph).__name__}, not a {mesh.size}-shard graph")
+    out = {"shards": mesh.size, "devices": [str(dv) for dv in mesh.devices],
+           "ingest_s": ingest_s, "seal_s": seal_s,
+           "sharded_build_s": graph.build_stats["seconds"],
+           "shard_build_s": graph.build_stats["shard_seconds"],
+           "device_build": graph.build_stats["device_build"],
+           "memory_allocated_before_bytes": before,
+           "seal_max_memory_allocated_bytes": seal_peak}
+    check(graph.build_stats["device_build"], "a shard's subgraph was not built on the device")
+
+    _concurrent_search(base, coll, q[:1], 1, {"limit": 10})  # warm-up
+    batches = []
+    scan_rescore = pmesh.sharded_scan_rescore
+    pmesh.sharded_scan_rescore = lambda *a, **kw: batches.append(1) or scan_rescore(*a, **kw)
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        fs.fused_scan_survivors.launches = fs.merge_survivors.launches = 0
+        hits, wall = _concurrent_search(base, coll, q, threads, {"limit": 10})
+        launches, merges = fs.fused_scan_survivors.launches, fs.merge_survivors.launches
+    finally:
+        pmesh.sharded_scan_rescore = scan_rescore
+    check(batches and launches == mesh.size * len(batches)
+          and merges == mesh.size * len(batches),
+          f"{len(batches)} batches launched {launches} scans and {merges} merges "
+          f"(not {mesh.size} each a batch)")
+    check(all(len(h) == 10 for h in hits), "a mesh search returned fewer than 10 hits")
+    recall = _recall(hits, truth, 10)
+    worst = _euclid_score_err(hits, x, q)
+    check(worst <= 1e-4, f"mesh: returned distances off by {worst} (relative)")
+    check(recall >= 0.99, f"mesh scan recall@10 {recall} < 0.99")
+    out["scan"] = {"requests": len(q), "threads": threads, "wall_s": wall,
+                   "qps": len(q) / wall, "recall_at_10": recall, "score_rel_err": worst,
+                   "batches": len(batches), "scan_launches": launches,
+                   "merge_launches": merges,
+                   "launches_per_batch": launches / len(batches),
+                   "search_max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+                   **_traced_window(lambda: _concurrent_search(base, coll, q, threads,
+                                                               {"limit": 10}),
+                                    profile_dir, f"{coll}_scan")}
+    graph.served.clear()
+    fs.fused_scan_survivors.launches = 0
+    _, res = _graph_window(base, x, q, truth, 128, threads, label="mesh graph", coll=coll)
+    check(graph.served["level"] > 0 and set(graph.served) == {"level"},
+          f"the mesh graph searches were served by {dict(graph.served)}")
+    check(fs.fused_scan_survivors.launches == 0, "a mesh graph search launched the scan kernel")
+    check(res["recall_at_10"] >= 0.90, f"mesh graph recall@10 {res['recall_at_10']} < 0.90")
+    out["graph"] = res
+    return out, seg
+
+
+def run_mesh(storage, fs, x, q, truth, shards=MESH_SHARDS, threads=8, profile_dir=None):
+    """The mesh phase → dict of numbers: (b) the sift1m rows served through
+    REST over `shards` logical shards of the card, (a) the four programs,
+    (c) the sealed segment saved by the shard's flush at close, loaded on
+    the same mesh (the same ids) and on a 2-shard mesh (rebuilt); with more
+    than one card, (b) once more over the cards."""
+    import torch
+
+    from qdrant_tpu_torch import device as tdev
+    from qdrant_tpu_torch.api.rest import RestServer
+    from qdrant_tpu_torch.api.toc import TableOfContent
+    from qdrant_tpu_torch.index.hnsw import ShardedHnswIndex
+    from qdrant_tpu_torch.storage.segment import SearchParams, Segment
+
+    n, d = x.shape
+    out = {"points": n, "dim": d}
+    t_start = time.perf_counter()
+    ef = SearchParams(hnsw_ef=128)
+
+    def step(name):  # progress, so that a cut run shows where its time went
+        print(f"mesh: {name} after {time.perf_counter() - t_start:.1f} s", flush=True)
+
+    def serve(name):
+        toc = TableOfContent(os.path.join(storage, name))
+        srv = RestServer(toc, host="127.0.0.1", port=0)
+        srv.start_background()
+        return toc, srv, f"http://127.0.0.1:{srv.port}"
+
+    tdev.set_logical_devices(shards)
+    try:
+        toc, srv, base = serve("toc")
+        try:
+            out["logical"], seg = _mesh_serve(base, toc, fs, "sift_mesh", x, q, truth,
+                                              threads, profile_dir)
+            step("served")
+            out["programs"] = _mesh_programs(fs, x, q, seg.hnsw[""])
+            step("programs")
+            _, live = seg.search_dense("", q, 10, params=ef)
+            shard = toc.get_collection("sift_mesh").shards[0]
+            path = os.path.join(shard._segments_root(), shard._segment_dirs[id(seg)])
+            del seg
+        finally:
+            srv.shutdown()
+            t0 = time.perf_counter()
+            toc.close()  # the shard's flush saves every segment, the sealed one too
+            save_s = time.perf_counter() - t0
+
+        # (c) persistence: the same mesh loads the graph, another rebuilds it
+        t0 = time.perf_counter()
+        same = Segment.load(path)
+        load_s = time.perf_counter() - t0
+        g = same.hnsw[""]
+        check(isinstance(g, ShardedHnswIndex) and g.n_shards == shards and not g.build_stats,
+              "the saved sharded graph did not load onto the same mesh")
+        _, again = same.search_dense("", q, 10, params=ef)
+        check(np.array_equal(live, again), "the loaded graph answers other ids")
+        del same, g
+        step("saved and loaded")
+        tdev.set_logical_devices(2)
+        t0 = time.perf_counter()
+        two = Segment.load(path)
+        rebuild_s = time.perf_counter() - t0
+        g = two.hnsw[""]
+        check(isinstance(g, ShardedHnswIndex) and g.n_shards == 2
+              and g.build_stats.get("shards") == 2,
+              "a 2-shard mesh did not rebuild the saved 4-shard graph")
+        _, offs = two.search_dense("", q, 10, params=ef)
+        ids2 = [{two.id_tracker.external_id(int(o)) for o in row if o >= 0} for row in offs]
+        recall2 = float(np.mean([len(a & set(t.tolist())) / 10 for a, t in zip(ids2, truth)]))
+        check(recall2 >= 0.90, f"the rebuilt 2-shard graph's recall@10 {recall2} < 0.90")
+        out["persistence"] = {"save_s": save_s, "load_same_mesh_s": load_s,
+                              "ids_equal_after_load": True, "load_2_shards_s": rebuild_s,
+                              "rebuild_build_s": g.build_stats["seconds"],
+                              "recall_at_10_2_shards": recall2}
+        del two, g
+        step("rebuilt on 2 shards")
+
+        cards = torch.cuda.device_count()
+        if cards > 1:  # (b) over the real cards: copies between them
+            tdev.set_logical_devices(None)
+            toc, srv, base = serve("cards")
+            try:
+                out["cards"], _ = _mesh_serve(base, toc, fs, "sift_cards", x, q, truth,
+                                              threads, None)
+            finally:
+                srv.shutdown()
+                toc.close()
+        else:
+            print("mesh: one card: the shards share it, copies between cards were not "
+                  "exercised", flush=True)
+        return out
+    finally:
+        tdev.set_logical_devices(None)
 
 
 def _same_beam(s_a, i_a, s_b, i_b, rtol=1e-5, magnitude=1.0, top=None):
@@ -2572,10 +2892,14 @@ def main() -> int:
     ap.add_argument("--cluster-points", type=int, default=CLUSTER_POINTS,
                     help="points of the cluster phase (not under 208,896, or a "
                     "replica's segment would not take the scan kernel)")
+    ap.add_argument("--mesh-rows", type=int, default=MESH_ROWS,
+                    help="points of the mesh phase, a prefix of the rest phase's rows "
+                    "(at most --graph-rows; cut from 1,000,000 for the script's time)")
     ap.add_argument("--profile", metavar="DIR",
                     help="trace one extra REST window with torch.profiler into DIR")
     args = ap.parse_args()
     phases = [p for p in args.phases.split(",") if p]
+    mesh_rows = min(args.mesh_rows, args.graph_rows)
     unknown = set(phases) - set(ALL_PHASES) - set(EXTRA_PHASES)
     if unknown:
         ap.error(f"unknown phases {sorted(unknown)}")
@@ -2651,6 +2975,9 @@ def main() -> int:
         # dense prefetch (limit 30) over the sparse phase's points.
         rest_kw = dict(b=8, n=args.graph_rows, d=128, euclid=True, deleted_frac=0.0)
         rrf_kw = dict(rest_kw, n=args.sparse_rows)
+        # one shard of the mesh phase: its rows padded to whole blocks on
+        # every shard, a quarter of them
+        mesh_kw = dict(rest_kw, n=fs.pad_rows(mesh_rows, 4096 * MESH_SHARDS) // MESH_SHARDS)
         max_err = 0.0
         for name, phase, kw in (
             ("euclid_1m_128", None,
@@ -2664,6 +2991,7 @@ def main() -> int:
             # a shard replica of the cluster phase: a third of its points
             ("cluster_shard_euclid_b8", "cluster",
              dict(rest_kw, n=args.cluster_points // 3)),
+            ("mesh_shard_euclid_b8", "mesh", mesh_kw),
             # rows too wide for a resident query tile: the queries stream
             ("wide_dot_65k_12288_b8", None,
              dict(b=8, n=65_536, d=12_288, euclid=False, deleted_frac=0.1)),
@@ -2714,6 +3042,7 @@ def main() -> int:
     os.makedirs(storage_root, exist_ok=True)
     free_gb = shutil.disk_usage(storage_root).free / 1e9
     print(f"storage: {storage_root} ({free_gb:.1f} GB free)", flush=True)
+    data = None  # the rest phase's rows, queries and exact top-10, for the mesh phase
     if "rest" in phases or "graph" in phases:
         storage = tempfile.mkdtemp(prefix="smoke_rest_", dir=storage_root)
         try:
@@ -2721,6 +3050,7 @@ def main() -> int:
                             profile_dir=args.profile)
         finally:
             shutil.rmtree(storage, ignore_errors=True)
+        data = both.pop("data")
         if "rest" in both:
             res = both["rest"]
             print(f"rest sift1m: {json.dumps(res)} ({card})", flush=True)
@@ -2732,6 +3062,24 @@ def main() -> int:
         res = run_graph_vs_cpu(rng)
         print(f"graph cuda vs cpu: {json.dumps(res)} ({card})", flush=True)
         lap("graph vs cpu")
+    if "mesh" in phases:
+        if data is None:  # the rest phase did not run: the same rows from the seed
+            x, q = _clustered(rng, args.graph_rows, 128, 64)
+            data = (x, q, _exact_topk(x, q, 10, "euclid"))
+        x, q, truth = data
+        if mesh_rows < len(x):
+            x = x[:mesh_rows]
+            truth = _exact_topk(x, q, 10, "euclid")
+        storage = tempfile.mkdtemp(prefix="smoke_mesh_", dir=storage_root)
+        try:
+            res = run_mesh(storage, fs, x, q, truth, profile_dir=args.profile)
+        finally:
+            shutil.rmtree(storage, ignore_errors=True)
+        print(f"mesh sift1m: {json.dumps(res)} ({card})", flush=True)
+        lap("mesh")
+        scan = res["logical"]["scan"]
+        launched["mesh"] = ("bf16", scan["scan_launches"], scan["merge_launches"])
+    data = None
     if "filtered" in phases:
         storage = tempfile.mkdtemp(prefix="smoke_filtered_", dir=storage_root)
         try:

@@ -14,7 +14,8 @@ codes on first use. `sparse_index_from_jax` carries a JAX sparse store's rows
 across as flat numpy arrays, where the main route is the `sparse_*/`
 directory. `hnsw_index_from_jax` carries a built JAX graph (levels, rank,
 entry and both link tables) across as numpy arrays, where the main route is
-the `hnsw_*/` directory, so both packages can search the same graph.
+the `hnsw_*/` directory, so both packages can search the same graph;
+`sharded_hnsw_index_from_jax` does the same for a mesh-sharded graph.
 `multivector_from_jax` carries a JAX multivector store's token rows and
 ranges across, where the main route is the `multi_*/` directory; a JAX
 pooled-proxy graph then comes across through `hnsw_index_from_jax` over the
@@ -29,11 +30,12 @@ import numpy as np
 import torch
 
 from .device import default_device
-from .index.hnsw import HnswIndex
+from .index.hnsw import HnswIndex, ShardedHnswIndex
 from .index.sparse import SparseIndex, SparseVectorStore
 from .ops import quantization as qops
-from .ops.fused_scan import DEFAULT_BLK
+from .ops.fused_scan import DEFAULT_BLK, NEG_INF
 from .ops.scan import ScanIndex
+from .parallel.mesh import Mesh
 from .storage.vectors import DenseVectorStore, MultiVectorStore
 from .types import Datatype, Distance, HnswConfig
 
@@ -45,11 +47,18 @@ def scan_index_from_jax(
     euclid: Optional[bool] = None,
     block: int = DEFAULT_BLK,
     device: Optional[torch.device] = None,
+    mesh: Optional[Mesh] = None,
 ) -> ScanIndex:
-    """Rebuild a port ScanIndex, bit for bit, from the arrays of a
-    single-device JAX ScanIndex in its TPU layout, as numpy: `_v` (bf16,
+    """Rebuild a port ScanIndex, bit for bit, from the arrays of a JAX
+    ScanIndex, as numpy.
+
+    Without `mesh`: a single-device JAX index in its TPU layout, `_v` (bf16,
     pre-scaled by 2 for euclid), `_vsq_host` (f32 ||v||^2) and `_mask` (the
-    f32 bias table) — the port's own layout.
+    f32 bias table) — the port's own layout. With `mesh`: a JAX mesh index,
+    `_v` (bf16 rows, unscaled), `_vsq`, `_mask` (int8 validity) and `_v_f32`
+    (the f32 rows it rescores from), sharded over `mesh` (its rows must be
+    whole `block`-row blocks on every shard); the bf16 rows are doubled for
+    euclid (exact) and the bias built from `_vsq` and `_mask`.
 
     `np.asarray` of a jax bf16 array has the ml_dtypes bfloat16 type, which
     torch.from_numpy refuses, so the block crosses as raw 16-bit patterns.
@@ -57,16 +66,21 @@ def scan_index_from_jax(
     pass it so later mask updates keep pad rows invalid); `euclid` defaults
     to whether the ||v||^2 table is non-zero.
     """
-    device = device or default_device()
+    device = mesh.devices[0] if mesh is not None else device or default_device()
     bits = np.asarray(arrays["_v"]).view(np.int16)
     v = torch.tensor(bits, device=device).view(torch.bfloat16)  # copies
-    vsq = np.asarray(arrays["_vsq_host"], dtype=np.float32)
-    bias = torch.tensor(np.asarray(arrays["_mask"], dtype=np.float32), device=device)
+    vsq = np.asarray(arrays["_vsq_host" if mesh is None else "_vsq"], dtype=np.float32)
     if euclid is None:
         euclid = bool(np.any(vsq != 0))
-    return ScanIndex.from_arrays(
-        v, vsq, bias, n=v.shape[0] if n is None else n, euclid=euclid, block=block
-    )
+    n = v.shape[0] if n is None else n
+    if mesh is None:
+        bias = torch.tensor(np.asarray(arrays["_mask"], dtype=np.float32), device=device)
+        return ScanIndex.from_arrays(v, vsq, bias, n=n, euclid=euclid, block=block)
+    live = np.asarray(arrays["_mask"]) != 0
+    bias = torch.tensor(np.where(live, -vsq, NEG_INF).astype(np.float32), device=device)
+    rows = torch.tensor(np.asarray(arrays["_v_f32"], dtype=np.float32), device=device)
+    return ScanIndex.from_arrays(2.0 * v if euclid else v, vsq, bias, n=n, euclid=euclid,
+                                 block=block, mesh=mesh, rows=rows)
 
 
 def quantized_from_jax(q):
@@ -125,6 +139,22 @@ def hnsw_index_from_jax(index, store: DenseVectorStore) -> HnswIndex:
     out.counts0 = np.array(index.counts0, dtype=np.int32)
     out.links_upper = np.array(index.links_upper, dtype=np.int32)
     out.counts_upper = np.array(index.counts_upper, dtype=np.int32)
+    return out
+
+
+def sharded_hnsw_index_from_jax(index, store: DenseVectorStore, mesh: Mesh
+                                ) -> ShardedHnswIndex:
+    """The port's ShardedHnswIndex over `store` holding the subgraphs of a
+    built JAX `ShardedHnswIndex`: its shard-major local-offset links, the
+    per-shard entries and the alive rows cross as numpy arrays and are laid
+    out on `mesh`, which must have as many shards."""
+    if mesh.size != int(index.n_shards):
+        raise ValueError(f"a {index.n_shards}-shard graph on a mesh of {mesh.size}")
+    out = ShardedHnswIndex(store, HnswConfig.from_dict(index.config.to_dict()),
+                           seed=index.seed, mesh=mesh)
+    out._install(torch.from_numpy(np.array(index._links, dtype=np.int32)),
+                 np.array(index._entries, dtype=np.int32),
+                 np.array(index._alive, dtype=bool), int(index.n_per_shard))
     return out
 
 

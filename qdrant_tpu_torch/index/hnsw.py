@@ -15,7 +15,9 @@ qdrant_tpu/index/hnsw.py::HnswIndex).
     `beam_search_level` otherwise, `beam_search_acorn` for selective filters.
 
 The files written by `save` (`hnsw_graph.npz`, `hnsw_meta.json`) are the JAX
-package's, so either package loads a graph the other built.
+package's, so either package loads a graph the other built. On a device mesh
+the seal builds a `ShardedHnswIndex` instead: one subgraph per row slice,
+searched on every shard (`hnsw_sharded.npz`, also the JAX package's files).
 """
 
 from __future__ import annotations
@@ -29,9 +31,10 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from ..device import default_device, tensor_bytes
+from ..device import default_device, storage_bytes, tensor_bytes
 from ..ops import hnsw as hnsw_ops
 from ..ops.distances import preprocess_vectors
+from ..parallel.mesh import make_mesh, place_rows, shard_slices, sharded_hnsw_search
 from ..storage.vectors import DenseVectorStore
 from ..types import Distance, HnswConfig
 from ..utils.budget import BUDGET
@@ -1040,13 +1043,223 @@ class HnswIndex:
         return idx
 
 
-def load_hnsw_any(path: str, store: DenseVectorStore, config: HnswConfig) -> HnswIndex:
-    """Load the graph saved at `path`. The mesh-sharded flavour
-    (`hnsw_sharded.npz`, the JAX package's ShardedHnswIndex) is multi-device
-    and not ported yet."""
-    if os.path.exists(os.path.join(path, "hnsw_sharded.npz")):
-        raise NotImplementedError(
-            f"the sharded HNSW graph at {path} is not ported to qdrant_tpu_torch "
-            "yet (ROADMAP.md queue 1, item 2: multi-device)"
+class ShardedHnswIndex:
+    """Multi-device graph serving (counterpart of
+    qdrant_tpu/index/hnsw.py::ShardedHnswIndex): S independent per-row-slice
+    subgraphs searched on every shard of a mesh
+    (parallel/mesh.py::sharded_hnsw_search) and merged.
+
+    Each shard holds one contiguous row slice of np_local rows (rows stay
+    shard-major, so a local row plus shard * np_local is the store offset):
+    its rows (views of the store's device block where the shard's device is
+    the block's), a LOCAL-offset level-0 adjacency [np_local, M0] and an
+    entry point (-1: an empty or fully deleted shard, inert). Build: the
+    subgraphs are built one after another with the single-device builder
+    (`HnswIndex(subset=...)`), then re-based to local offsets on the device
+    (a subset build links only slice members). Upper levels are not served:
+    each shard's beam starts at its own entry, and np_local = n / S keeps the
+    level-0 walk short. Searches run the level beam on every shard (no
+    inline table, no ACORN beam, as in the JAX index); the files are the JAX
+    package's (`hnsw_sharded.npz`, `hnsw_meta.json` with `sharded` and
+    `n_shards`).
+    """
+
+    def __init__(self, store: DenseVectorStore, config: HnswConfig, seed: int = 42,
+                 mesh=None):
+        self.store = store
+        self.config = config
+        self.seed = seed
+        self.distance: Distance = store.distance
+        self.mesh = mesh
+        self.n_shards = 0
+        self.n_per_shard = 0
+        self._v = None  # per shard [<= Np, D] rows
+        self._links = None  # per shard [Np, M0], local-offset values
+        self._entries: Optional[np.ndarray] = None  # [S] int32 local entry, -1 inert
+        self._alive: Optional[np.ndarray] = None  # [S*Np] bool host (pad rows False)
+        self._mask_cache: Dict[bytes, list] = {}
+        self.served: collections.Counter = collections.Counter()
+        self.build_stats: dict = {}
+
+    # -- build ----------------------------------------------------------
+
+    def build(self, batch_size: int = 1024, ef_construct: Optional[int] = None,
+              progress_fn=None) -> None:
+        """Build one subgraph per shard; `build_stats` gives the seconds of
+        the whole build and of each shard's."""
+        t0 = time.perf_counter()
+        if self.mesh is None:
+            self.mesh = make_mesh()
+        s_count = self.mesh.size
+        n = len(self.store)
+        alive_mask = ~self.store.deleted_mask
+        np_local = max((n + s_count - 1) // s_count, 8)
+        np_local = (np_local + 127) // 128 * 128
+        v, _ = self.store.device_block()
+        links = torch.full((s_count * np_local, self.config.m0), -1, dtype=torch.int32,
+                           device=v.device)
+        entries = np.full(s_count, -1, np.int32)
+        shard_stats = []
+        for s in range(s_count):
+            lo = s * np_local
+            hi = min(lo + np_local, n)
+            ids = (np.nonzero(alive_mask[lo:hi])[0] + lo).astype(np.int32)
+            if len(ids) == 0:
+                continue  # inert: no rows, or all deleted
+            sub = HnswIndex(self.store, self.config, seed=self.seed + s, subset=ids)
+            sub.build(batch_size=batch_size, ef_construct=ef_construct)
+            ids_dev = torch.from_numpy(ids.astype(np.int64)).to(v.device)
+            lk = sub._links0_device()[sub._rank_device()[ids_dev].long()]
+            links[ids_dev] = torch.where(lk >= 0, lk - lo, -1).to(torch.int32)
+            entries[s] = sub.entry - lo
+            shard_stats.append(sub.build_stats)
+            del sub
+            if progress_fn:
+                progress_fn(hi, n)
+        alive = np.zeros(s_count * np_local, dtype=bool)
+        alive[:n] = alive_mask[:n]
+        self._install(links, entries, alive, np_local)
+        _sync(links)
+        self.build_stats = {
+            "points": int(sum(st["points"] for st in shard_stats)),
+            "shards": s_count,
+            "device_build": bool(shard_stats) and all(
+                st.get("device_build") for st in shard_stats),
+            "shard_seconds": [st["seconds"] for st in shard_stats],
+            "seconds": time.perf_counter() - t0,
+        }
+
+    def _install(self, links: torch.Tensor, entries: np.ndarray, alive: np.ndarray,
+                 np_local: int) -> None:
+        """Lay a shard-major level-0 table [S*Np, M0] (any device or the
+        host), the entries and the alive rows out on the mesh."""
+        v, _ = self.store.device_block()
+        self._v = shard_slices(v, self.mesh, np_local)
+        self._links = place_rows(links if self.mesh.one_device else links.cpu(), self.mesh)
+        self._entries = np.asarray(entries, dtype=np.int32)
+        self._alive = np.asarray(alive, dtype=bool)
+        self._mask_cache.clear()
+        self.n_shards = self.mesh.size
+        self.n_per_shard = np_local
+
+    # -- search ---------------------------------------------------------
+
+    def _mask_sharded(self, mask: np.ndarray) -> list:
+        """Per-shard device copies of a [S*Np] bool mask, digest-cached (a
+        repeated filter reuses them)."""
+        import hashlib
+
+        key = hashlib.blake2b(np.ascontiguousarray(mask), digest_size=16).digest()
+        hit = self._mask_cache.get(key)
+        if hit is None:
+            if len(self._mask_cache) >= 16:
+                self._mask_cache.pop(next(iter(self._mask_cache)))
+            hit = self._mask_cache[key] = place_rows(torch.from_numpy(mask), self.mesh)
+        return hit
+
+    def search(
+        self,
+        queries: np.ndarray,
+        k: int,
+        ef: Optional[int] = None,
+        filter_mask: Optional[np.ndarray] = None,
+        acorn: bool = False,  # noqa: ARG002 — the sharded beam is mask-biased
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        """→ (scores [B, k], offsets [B, k]), -1 padded. Offsets are global
+        store offsets (shard-major rows coincide with store offsets)."""
+        queries = np.atleast_2d(np.asarray(queries, dtype=np.float32))
+        b = queries.shape[0]
+        if self._v is None or self.n_shards == 0:
+            return (np.full((b, k), -np.inf, dtype=np.float32),
+                    np.full((b, k), -1, dtype=np.int32))
+        b_pad = _pow2_at_least(b, 8)
+        q = _pad_rows(preprocess_vectors(queries, self.distance), b_pad, 0.0)
+        mask = self._alive
+        if filter_mask is not None:
+            fm = np.zeros(mask.shape[0], dtype=bool)
+            m = min(len(filter_mask), mask.shape[0])
+            fm[:m] = filter_mask[:m]
+            mask = mask & fm
+        ef_eff = max(ef or self.config.ef_construct, k)
+        self.served["level"] += 1
+        s, ids = sharded_hnsw_search(
+            self.mesh, torch.from_numpy(q).to(self.mesh.devices[0]), self._v, self._links,
+            self._entries, self._mask_sharded(mask), self.distance.value, ef_eff, k,
         )
+        scores = _to_host(s, np.float32)[:b]
+        out_ids = _to_host(ids, np.int32)[:b]
+        # per-shard entry points bypass the in-beam filter (traversal must be
+        # able to start anywhere): enforce alive and the filter on the merged
+        # results, then re-sort (stable)
+        ok = (out_ids >= 0) & mask[np.maximum(out_ids, 0)]
+        scores = np.where(ok, scores, -np.inf)
+        out_ids = np.where(ok, out_ids, -1)
+        order = np.argsort(-scores, axis=1, kind="stable")
+        scores = np.take_along_axis(scores, order, axis=1)
+        out_ids = np.take_along_axis(out_ids, order, axis=1)
+        if k > scores.shape[1]:
+            pad = k - scores.shape[1]
+            scores = np.pad(scores, ((0, 0), (0, pad)), constant_values=-np.inf)
+            out_ids = np.pad(out_ids, ((0, 0), (0, pad)), constant_values=-1)
+        return scores, out_ids
+
+    def memory_usage_bytes(self):
+        """Host alive mask and entries; on the device the adjacency (each
+        distinct storage once) and any rows not viewed from the store's
+        block."""
+        from ..utils.memsize import merge, sizeof_attrs
+
+        rows, block = [], getattr(self.store, "_dev", None)
+        if self._v is not None:
+            src = None if block is None else block.untyped_storage().data_ptr()
+            rows = [r for r in self._v if r.untyped_storage().data_ptr() != src]
+        return merge(
+            sizeof_attrs(self, "_alive", "_entries"),
+            {"device_bytes": storage_bytes(*(self._links or []), *rows)},
+        )
+
+    # -- persistence (the JAX package's files) ----------------------------
+
+    def save(self, path: str) -> None:
+        os.makedirs(path, exist_ok=True)
+        np.savez_compressed(
+            os.path.join(path, "hnsw_sharded.npz"),
+            links=np.concatenate([_to_host(t, np.int32) for t in self._links]),
+            entries=self._entries,
+            alive=self._alive,
+        )
+        with open(os.path.join(path, "hnsw_meta.json"), "w") as f:
+            json.dump(
+                {
+                    "sharded": True,
+                    "n_shards": self.n_shards,
+                    "n_per_shard": self.n_per_shard,
+                    "m": self.config.m,
+                    "ef_construct": self.config.ef_construct,
+                },
+                f,
+            )
+
+    @classmethod
+    def load(cls, path: str, store: DenseVectorStore, config: HnswConfig,
+             mesh=None) -> "ShardedHnswIndex":
+        """Load onto `mesh` (default: the process's mesh); a mesh of another
+        size than the saved one rebuilds the subgraphs for it."""
+        idx = cls(store, config, mesh=mesh or make_mesh())
+        with open(os.path.join(path, "hnsw_meta.json")) as f:
+            meta = json.load(f)
+        if idx.mesh.size != int(meta["n_shards"]):
+            idx.build()  # topology changed since the save
+            return idx
+        with np.load(os.path.join(path, "hnsw_sharded.npz")) as data:
+            idx._install(torch.from_numpy(data["links"].astype(np.int32)), data["entries"],
+                         data["alive"], int(meta["n_per_shard"]))
+        return idx
+
+
+def load_hnsw_any(path: str, store: DenseVectorStore, config: HnswConfig):
+    """Load whichever graph flavour was saved at `path`: the single-device
+    HnswIndex, or the mesh-sharded ShardedHnswIndex (`hnsw_sharded.npz`)."""
+    if os.path.exists(os.path.join(path, "hnsw_sharded.npz")):
+        return ShardedHnswIndex.load(path, store, config)
     return HnswIndex.load(path, store, config)

@@ -2,9 +2,10 @@
 qdrant_tpu/index/plain.py).
 
 Segments of SCAN_THRESHOLD rows or more run the fused scan kernel
-(ops/fused_scan.py) and an exact f32 rescore of its oversampled winners;
-smaller ones score every row with one matrix product and a top-k. Either way
-only [B, k] scores and ids leave the device.
+(ops/fused_scan.py) and an exact f32 rescore of its oversampled winners, on
+every shard of the store's mesh ScanIndex where it has one; smaller ones
+score every row with one matrix product and a top-k. Either way only [B, k]
+scores and ids leave the device.
 """
 
 from __future__ import annotations
@@ -143,9 +144,13 @@ class PlainIndex:
         b_pad = max(8, (b + 7) // 8 * 8)
         qp = np.zeros((b_pad, scan.d_pad), dtype=np.float32)
         qp[:b, : q.shape[1]] = q
+        vectors, _ = self.store.device_block()
+        if scan.mesh is not None:
+            # multi-device: the fused scan + f32 rescore on every shard, merged
+            s, ids = scan._search_mesh_device(qp, k, bias, rows=vectors)
+            return s, ids, b, s.shape[1]
         k_fetch = min(max(2 * k, k + 8), scan.n)
         k_eff = min(k, k_fetch)
-        vectors, _ = self.store.device_block()
         euclid = self.store.distance in (Distance.EUCLID,)
         qp_dev = torch.from_numpy(qp).to(scan.device)  # scan + rescore query
         blk, slots = scan_grid(scan.n_pad, k_fetch, scan.block)

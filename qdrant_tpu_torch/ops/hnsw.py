@@ -270,7 +270,7 @@ def beam_search_acorn(
 beam_search_acorn.calls = 0
 
 
-def beam_search_level(
+def level_beam_loop(
     queries: torch.Tensor,  # [B, D] f32
     vectors: torch.Tensor,  # [N, D]
     links: torch.Tensor,  # [Nl, M] int32 (-1 padded), rows indexed by compact id
@@ -281,15 +281,10 @@ def beam_search_level(
     distance: str,
     compact_of: Optional[torch.Tensor] = None,  # [N] int32 global→row in `links`
     expand: int = 4,
-    check_every: Optional[int] = CHECK_EVERY,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Batched beam search on one level → (scores [B, ef], ids [B, ef]).
-
-    Each turn expands the `expand` best unexpanded beam entries at once.
-    Filtered-out nodes are skipped entirely; entry points are scored even if
-    filtered out so traversal can start anywhere — the caller drops
-    non-matching entries.
-    """
+):
+    """The loop of `beam_search_level`, not yet run → (state, step, active,
+    iters) for `run_until_idle`, or for `run_all_until_idle` beside other
+    beams. The final state is (beam_ids, beam_scores, beam_exp)."""
     beam_search_level.calls += 1
     b = queries.shape[0]
     e_x = expand
@@ -320,8 +315,54 @@ def beam_search_level(
         return _merge_beam(beam_ids, beam_scores, beam_exp, neigh, n_scores, ef)
 
     state = (beam_ids, beam_scores, beam_exp)
-    beam_ids, beam_scores, _ = run_until_idle(
-        step, state, lambda st: _has_candidate(st[0], st[2]), iters, check_every)
+    return state, step, lambda st: _has_candidate(st[0], st[2]), iters
+
+
+def run_all_until_idle(loops, check_every: Optional[int] = CHECK_EVERY):
+    """`run_until_idle` over several (state, step, active, iters) loops in
+    lockstep → their final states. Every loop still running takes one turn
+    per round; every `check_every` rounds one idle check reads all of their
+    flags. Each loop ends where `run_until_idle` would end it alone, so its
+    state is the same; when the loops lie on several cards, all of them have
+    a stride of turns queued before the host waits on any."""
+    states = [lp[0] for lp in loops]
+    running = list(range(len(loops)))
+    for it in range(max((lp[3] for lp in loops), default=0)):
+        if check_every and it % check_every == 0:
+            flags = [bool(loops[i][2](states[i])) for i in running]
+            running = [i for i, on in zip(running, flags) if on]
+        running = [i for i in running if it < loops[i][3]]
+        if not running:
+            break
+        for i in running:
+            states[i] = loops[i][1](states[i], it)
+    return states
+
+
+def beam_search_level(
+    queries: torch.Tensor,  # [B, D] f32
+    vectors: torch.Tensor,  # [N, D]
+    links: torch.Tensor,  # [Nl, M] int32 (-1 padded), rows indexed by compact id
+    entry_ids: torch.Tensor,  # [B, E] int32 initial candidates (-1 padded)
+    filter_mask: Optional[torch.Tensor],  # [N] bool — nodes allowed in results/expansion
+    ef: int,
+    max_iters: int,
+    distance: str,
+    compact_of: Optional[torch.Tensor] = None,  # [N] int32 global→row in `links`
+    expand: int = 4,
+    check_every: Optional[int] = CHECK_EVERY,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Batched beam search on one level → (scores [B, ef], ids [B, ef]).
+
+    Each turn expands the `expand` best unexpanded beam entries at once.
+    Filtered-out nodes are skipped entirely; entry points are scored even if
+    filtered out so traversal can start anywhere — the caller drops
+    non-matching entries.
+    """
+    state, step, active, iters = level_beam_loop(
+        queries, vectors, links, entry_ids, filter_mask, ef, max_iters, distance,
+        compact_of, expand)
+    beam_ids, beam_scores, _ = run_until_idle(step, state, active, iters, check_every)
     return beam_scores, beam_ids
 
 

@@ -28,7 +28,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from ..device import default_device, require_exact_f32_matmul
+from ..device import default_device, require_exact_f32_matmul, storage_bytes
+from ..parallel import mesh as pmesh
 from .fused_scan import (
     DEFAULT_BLK,
     NEG_INF,
@@ -237,7 +238,19 @@ def scan_search_sq_rescore(
 
 class ScanIndex:
     """Blocked-scan searcher over a frozen [N, D] block (distance-
-    preprocessed f32 host rows)."""
+    preprocessed f32 host rows).
+
+    With more than one mesh device (parallel/mesh.py::mesh_enabled, unless a
+    `device` is named) the block is sharded, as the JAX index shards it over
+    every device: rows pad to DEFAULT_BLK * S so that each shard holds whole
+    4,096-row blocks, each shard's bf16 block and bias table lie on its
+    device (views of one tensor where the mesh repeats one card), and a
+    search runs the fused scan and the exact f32 rescore on every shard and
+    merges (parallel/mesh.py::sharded_scan_rescore). The rescore reads f32
+    rows given by the caller (`rows`: the store's device block, cut into
+    per-shard views); the JAX mesh index keeps a third, f32 copy of the
+    block in its scan layout, which on one card would double the f32 rows.
+    Only a ScanIndex built without `rows` uploads its own."""
 
     def __init__(
         self,
@@ -246,81 +259,132 @@ class ScanIndex:
         euclid: bool = False,
         block: int = DEFAULT_BLK,
         device: Optional[torch.device] = None,
+        rows: Optional[torch.Tensor] = None,  # mesh: device f32 rows [>= N, D]
     ):
         n, d = vectors.shape
-        self.device = device or default_device()
+        self.mesh = pmesh.make_mesh() if device is None and pmesh.mesh_enabled() else None
+        self.device = self.mesh.devices[0] if self.mesh else device or default_device()
         self.n = n
         self.d = d
         self.block = block
         self.euclid = euclid
         self.d_pad = max((d + 127) // 128 * 128, 128)
-        self.n_pad = pad_rows(n, block)
-        v = torch.zeros((self.n_pad, self.d_pad), dtype=torch.bfloat16,
-                        device=self.device)
-        vsq = np.zeros(self.n_pad, dtype=np.float32)
-        for i in range(0, n, _UPLOAD_ROWS):
-            rows = np.zeros((min(_UPLOAD_ROWS, n - i), self.d_pad), np.float32)
-            rows[:, :d] = vectors[i : i + len(rows)]
-            if euclid:  # summed over the padded width, as the JAX index does
-                vsq[i : i + len(rows)] = (rows * rows).sum(axis=1)
-            chunk = torch.from_numpy(rows).to(self.device)
-            v[i : i + len(rows)] = (2.0 * chunk if euclid else chunk).to(
+        shards = self.mesh.size if self.mesh else 1
+        self.n_pad = pad_rows(n, block * shards)
+        self._vsq_host = np.zeros(self.n_pad, dtype=np.float32)  # to rebuild the bias
+        if self.mesh is None:
+            self._v = self._upload(vectors, 0, self.n_pad, self.device)
+        elif self.mesh.one_device:
+            block_v = self._upload(vectors, 0, self.n_pad, self.device)
+            self._v = pmesh.shard_rows(block_v, self.mesh)
+        else:
+            np_local = self.n_pad // shards
+            self._v = [self._upload(vectors, s * np_local, (s + 1) * np_local, dev)
+                       for s, dev in enumerate(self.mesh.devices)]
+        self._rows_src = self._rows = None
+        self._own_rows = self.mesh is not None and rows is None
+        if self._own_rows:
+            rows = torch.tensor(np.asarray(vectors), dtype=torch.float32, device=self.device)
+        if self.mesh is not None:
+            self.rescore_rows(rows)
+        self._mask = self.mask_device(valid_mask)
+
+    def _upload(self, vectors: np.ndarray, lo: int, hi: int, device) -> torch.Tensor:
+        """Rows lo..hi of the padded bf16 block (zeros past n) on `device`,
+        filling their ||v||^2 on the host."""
+        v = torch.zeros((hi - lo, self.d_pad), dtype=torch.bfloat16, device=device)
+        for i in range(lo, min(hi, self.n), _UPLOAD_ROWS):
+            rows = np.zeros((min(_UPLOAD_ROWS, min(hi, self.n) - i), self.d_pad), np.float32)
+            rows[:, : self.d] = vectors[i : i + len(rows)]
+            if self.euclid:  # summed over the padded width, as the JAX index does
+                self._vsq_host[i : i + len(rows)] = (rows * rows).sum(axis=1)
+            chunk = torch.from_numpy(rows).to(device)
+            v[i - lo : i - lo + len(rows)] = (2.0 * chunk if self.euclid else chunk).to(
                 torch.bfloat16
             )
-        self._v = v
-        self._vsq_host = vsq  # host copy to rebuild the bias on mask updates
-        self._mask = self.mask_device(valid_mask)
+        return v
 
     @classmethod
     def from_arrays(
         cls,
         v_bf16: torch.Tensor,  # [n_pad, d_pad] bf16, pre-scaled for euclid
         vsq_host: np.ndarray,  # [n_pad] f32 ||v||^2 (zeros unless euclid)
-        bias: torch.Tensor,  # [n_pad] f32
+        bias: Optional[torch.Tensor],  # [n_pad] f32 (None: the caller sets a mask)
         n: int,
         euclid: bool,
         block: int = DEFAULT_BLK,
+        mesh=None,  # parallel/mesh.py Mesh: shard the block over it
+        rows: Optional[torch.Tensor] = None,  # mesh: f32 rescore rows [>= n, D]
     ) -> "ScanIndex":
         """Wrap operands that already have the kernel's layout (convert.py)."""
         self = cls.__new__(cls)
+        self.mesh = mesh
         self.device = v_bf16.device
         self.n, self.block, self.euclid = n, block, euclid
         self.n_pad, self.d_pad = v_bf16.shape
         self.d = self.d_pad
-        self._v = v_bf16
         self._vsq_host = np.asarray(vsq_host, dtype=np.float32)
-        self._mask = bias
+        self._rows_src = self._rows = None
+        self._own_rows = False
+        if mesh is None:
+            self._v, self._mask = v_bf16, bias
+            return self
+        if self.n_pad % (block * mesh.size):
+            raise ValueError(f"{self.n_pad} rows are not whole {block}-row blocks "
+                             f"on each of {mesh.size} shards")
+        if rows is None:
+            raise ValueError("a mesh ScanIndex needs the f32 rows to rescore")
+        self._v = pmesh.shard_rows(v_bf16, mesh)
+        self._mask = self.mask_device(None) if bias is None else pmesh.shard_rows(bias, mesh)
+        self.rescore_rows(rows)
         return self
 
+    def rescore_rows(self, rows: Optional[torch.Tensor] = None):
+        """Per-shard f32 rows of the mesh's rescore, cut from `rows` (views
+        on the shard's device, a copy of the slice on another card); kept
+        until a search passes another rows tensor (a re-uploaded store
+        block). None: the rows cut last."""
+        if rows is not None and rows is not self._rows_src:
+            self._rows_src = rows
+            self._rows = pmesh.shard_slices(rows, self.mesh, self.n_pad // self.mesh.size)
+        return self._rows
+
     def memory_usage_bytes(self):
+        """Each distinct storage once: a mesh's per-shard views of one tensor
+        count it once, and f32 rows given by the store count only where they
+        were copied to another card."""
+        shards = self._v if isinstance(self._v, list) else [self._v]
+        masks = self._mask if isinstance(self._mask, list) else [self._mask]
+        rows = []
+        if self._rows is not None:
+            src = self._rows_src.untyped_storage().data_ptr()
+            rows = [r for r in self._rows
+                    if self._own_rows or r.untyped_storage().data_ptr() != src]
         return {
             "host_bytes": int(self._vsq_host.nbytes),
-            "device_bytes": int(
-                self._v.numel() * self._v.element_size()
-                + self._mask.numel() * self._mask.element_size()
-            ),
+            "device_bytes": storage_bytes(*shards, *masks, *rows),
             "disk_bytes": 0,
         }
 
-    def mask_device(self, valid_mask: Optional[np.ndarray]) -> torch.Tensor:
+    def mask_device(self, valid_mask: Optional[np.ndarray]):
         """Bias table for a validity mask: -||v||^2 (zeros unless euclid) for
-        valid rows, NEG_INF for the rest. The mask may be shorter than n (pad
-        rows stay invalid)."""
+        valid rows, NEG_INF for the rest (per shard on a mesh). The mask may
+        be shorter than n (pad rows stay invalid)."""
         mask = np.zeros(self.n_pad, dtype=bool)
         if valid_mask is None:
             mask[: self.n] = True
         else:
             m = np.asarray(valid_mask[: self.n], dtype=bool)
             mask[: len(m)] = m
-        bias = np.where(mask, -self._vsq_host, NEG_INF).astype(np.float32)
-        return torch.from_numpy(bias).to(self.device)
+        bias = torch.from_numpy(np.where(mask, -self._vsq_host, NEG_INF).astype(np.float32))
+        return bias.to(self.device) if self.mesh is None else pmesh.place_rows(bias, self.mesh)
 
     def update_mask(self, valid_mask: np.ndarray) -> None:
         self._mask = self.mask_device(valid_mask)
         if hasattr(self, "_mask_cache"):
             self._mask_cache.clear()
 
-    def mask_device_cached(self, valid_mask: np.ndarray) -> torch.Tensor:
+    def mask_device_cached(self, valid_mask: np.ndarray):
         """mask_device with a small digest-keyed cache: repeated searches
         with the same filter reuse the device bias instead of re-uploading
         [N] floats per call."""
@@ -337,32 +401,58 @@ class ScanIndex:
         return hit
 
     def search(
-        self, queries: np.ndarray, k: int, mask: Optional[torch.Tensor] = None
+        self, queries: np.ndarray, k: int, mask=None
     ) -> Tuple[np.ndarray, np.ndarray]:
         """→ host (scores [B, k], ids [B, k]); -1 = no result. Euclid scores
-        are -(q-v)^2 from the bf16 scan (||q||^2 subtracted host-side)."""
+        are -(q-v)^2: from the bf16 scan (||q||^2 subtracted host-side), or
+        exact from the f32 rescore on a mesh."""
         queries = np.atleast_2d(np.asarray(queries, dtype=np.float32))
         b, d = queries.shape
         b_pad = max(8, (b + 7) // 8 * 8)
         q = np.zeros((b_pad, self.d_pad), dtype=np.float32)
         q[:b, :d] = queries
-        k_eff = min(k, self.n)
-        blk, slots = scan_grid(self.n_pad, k_eff, self.block)
-        s, ids = fused_scan_topk(
-            torch.from_numpy(q).to(self.device),
-            self._v,
-            mask if mask is not None else self._mask,
-            k_eff,
-            blk=blk,
-            slots=slots,
-        )
-        s = s.cpu().numpy()[:b]
-        ids = ids.cpu().numpy().astype(np.int32)[:b]
-        if self.euclid:
-            q_sq = (queries * queries).sum(axis=1, keepdims=True)
-            s = np.where(ids >= 0, s - q_sq, -np.inf)
+        if self.mesh is not None:
+            s, ids = self._search_mesh_device(q, k, mask)
+            s, ids = s.cpu().numpy()[:b], ids.cpu().numpy().astype(np.int32)[:b]
+        else:
+            k_eff = min(k, self.n)
+            blk, slots = scan_grid(self.n_pad, k_eff, self.block)
+            s, ids = fused_scan_topk(
+                torch.from_numpy(q).to(self.device),
+                self._v,
+                mask if mask is not None else self._mask,
+                k_eff,
+                blk=blk,
+                slots=slots,
+            )
+            s = s.cpu().numpy()[:b]
+            ids = ids.cpu().numpy().astype(np.int32)[:b]
+            if self.euclid:
+                q_sq = (queries * queries).sum(axis=1, keepdims=True)
+                s = np.where(ids >= 0, s - q_sq, -np.inf)
         if k > s.shape[1]:
             pad = k - s.shape[1]
             s = np.pad(s, ((0, 0), (0, pad)), constant_values=-np.inf)
             ids = np.pad(ids, ((0, 0), (0, pad)), constant_values=-1)
         return s.astype(np.float32), ids
+
+    def _search_mesh_device(
+        self, q: np.ndarray, k: int, mask=None, rows: Optional[torch.Tensor] = None
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Sharded fused scan + per-shard f32 rescore + merge → DEVICE
+        (scores [B_pad, k'], ids) on the mesh's first device, k' <= min(k,
+        n) (the JAX k_fetch rule: min(max(2k, k+8), n_pad / S)). `rows`: the
+        f32 rows to rescore from (default: those cut last)."""
+        k_eff = min(k, self.n)
+        k_fetch = min(max(2 * k_eff, k_eff + 8), max(self.n_pad // self.mesh.size, 1))
+        return pmesh.sharded_scan_rescore(
+            self.mesh,
+            torch.from_numpy(q).to(self.device),
+            self._v,
+            mask if mask is not None else self._mask,
+            self.rescore_rows(rows),
+            self.block,
+            k_fetch,
+            k_eff,
+            self.euclid,
+        )

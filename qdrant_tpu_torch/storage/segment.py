@@ -22,9 +22,12 @@ token matrices) is scored by exact max-sim over its padded token block below
 proxy rows proposes candidates and max-sim rescores them, as in the JAX
 segment.
 
-Not ported yet, and refused rather than served differently: a mesh-sharded
-graph directory raises NotImplementedError when it is loaded. The on-disk
-format is the JAX package's.
+With more than one mesh device (parallel/mesh.py::mesh_enabled, the JAX
+seal's gate), a dense vector's scan is sharded over the mesh (its store's
+ScanIndex) and the seal builds a ShardedHnswIndex: per-shard subgraphs whose
+level beams run on every shard and merge; payload-block subgraphs stay on
+one device. The on-disk format is the JAX package's, a sharded graph
+directory included.
 """
 
 from __future__ import annotations
@@ -65,7 +68,7 @@ from ..types import (
 from ..utils import hw_counter
 from ..utils.budget import BUDGET
 
-from ..index.hnsw import HnswIndex, load_hnsw_any
+from ..index.hnsw import HnswIndex, ShardedHnswIndex, load_hnsw_any
 from ..index.plain import PlainIndex, fetch_to_host, finalize_device_result
 from ..index.sparse import SparseIndex, SparseVectorStore
 from .vectors import DenseVectorStore, MultiVectorStore, PooledMultiVectorStore
@@ -192,7 +195,7 @@ class Segment:
         self.multi: Dict[str, MultiVectorStore] = {}
         self.sparse: Dict[str, SparseVectorStore] = {}
         self.sparse_index: Dict[str, SparseIndex] = {}
-        self.hnsw: Dict[str, HnswIndex] = {}
+        self.hnsw: Dict[str, HnswIndex | ShardedHnswIndex] = {}
         # multivector name → HnswIndex over its PooledMultiVectorStore
         self.hnsw_multi: Dict[str, HnswIndex] = {}
         # filterable-HNSW payload-block subgraphs:
@@ -1136,8 +1139,8 @@ class Segment:
     def build_indexes(self, default_hnsw: Optional[HnswConfig] = None) -> None:
         """Seal the segment. Every multivector with live points gets an HNSW
         graph over its mean-pooled proxy rows. Every resident dense vector
-        with live rows gets
-        its HNSW graph and one subgraph per payload block of at least
+        with live rows gets its HNSW graph (a ShardedHnswIndex on a mesh)
+        and one subgraph per payload block of at least
         `full_scan_threshold` points (an `on_disk` vector skips the graph:
         it would force the f32 block onto the device). A vector with a
         quantization config is encoded as the JAX seal encodes it, and its
@@ -1148,6 +1151,7 @@ class Segment:
         no upload of what it scans."""
         from ..index.plain import SCAN_THRESHOLD
         from ..ops.fused_scan import DEFAULT_BLK
+        from ..parallel.mesh import mesh_enabled
 
         for name, vp in self.params.vectors.items():
             mstore = self.multi.get(name)
@@ -1164,7 +1168,11 @@ class Segment:
                 continue
             cfg = vp.hnsw_config or default_hnsw or HnswConfig()
             if store.available_count > 0 and not store.on_disk:
-                idx = HnswIndex(store, cfg)
+                # multi-device: per-shard subgraphs searched over the mesh;
+                # the payload-block subgraphs below stay on one device (they
+                # are small by construction)
+                idx = (ShardedHnswIndex(store, cfg) if mesh_enabled()
+                       else HnswIndex(store, cfg))
                 idx.build()
                 self.hnsw[name] = idx
                 # payload-block subgraphs for filterable search

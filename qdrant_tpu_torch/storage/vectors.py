@@ -216,8 +216,11 @@ class DenseVectorStore:
 
     def scan_index(self):
         """Cached blocked-scan searcher (ops/scan.py) over this store's
-        current contents — rebuilt lazily after mutations."""
+        current contents — rebuilt lazily after mutations. With a mesh
+        (parallel/mesh.py::mesh_enabled) it is sharded, and its f32 rescore
+        reads this store's device block through per-shard views."""
         from ..ops.scan import ScanIndex
+        from ..parallel.mesh import mesh_enabled
 
         if self._scan is None or self._scan_version != (
             self._count,
@@ -229,7 +232,7 @@ class DenseVectorStore:
                 self.host_array,
                 valid_mask=valid,
                 euclid=self.distance in (Distance.EUCLID, Distance.MANHATTAN),
-                device=default_device(),
+                rows=self.device_block()[0] if mesh_enabled() else None,
             )
             self._scan_version = (self._count, self._deleted_count)
         return self._scan
@@ -377,6 +380,7 @@ class DeviceVectorStore(DenseVectorStore):
 
     def scan_index(self):
         from ..ops.scan import DEFAULT_BLK, ScanIndex, pad_rows
+        from ..parallel.mesh import make_mesh, mesh_enabled
 
         if self._scan is None or self._scan_version != (
             self._count,
@@ -385,18 +389,22 @@ class DeviceVectorStore(DenseVectorStore):
             self._scan = None
             # the kernel's layout built on the device from the FULL block (a
             # [:count] slice would be a copy); pad rows past count stay
-            # invalid through the short mask
+            # invalid through the short mask. On a mesh the rows pad to whole
+            # blocks on every shard and the rescore reads this block's rows
+            mesh = make_mesh() if mesh_enabled() else None
             cap, d = self._dev.shape
             euclid = self.distance in (Distance.EUCLID, Distance.MANHATTAN)
             rows = self._dev.to(torch.float32)
-            v = torch.zeros((pad_rows(cap, DEFAULT_BLK), max((d + 127) // 128 * 128, 128)),
+            n_pad = pad_rows(cap, DEFAULT_BLK * (mesh.size if mesh else 1))
+            v = torch.zeros((n_pad, max((d + 127) // 128 * 128, 128)),
                             dtype=torch.bfloat16, device=self._dev.device)
             v[:cap, :d] = (2.0 * rows if euclid else rows).to(torch.bfloat16)
             vsq = np.zeros(v.shape[0], dtype=np.float32)
             if euclid:
                 vsq[:cap] = (rows * rows).sum(dim=1).cpu().numpy()
             del rows
-            self._scan = ScanIndex.from_arrays(v, vsq, None, cap, euclid)
+            self._scan = ScanIndex.from_arrays(v, vsq, None, cap, euclid, mesh=mesh,
+                                               rows=self._dev)
             self._scan.update_mask(~self._deleted[: self._count])
             self._scan_version = (self._count, self._deleted_count)
         return self._scan

@@ -504,3 +504,37 @@ def test_device_store_scan_index_on_card(cuda, distance):
     assert torch.equal(scan._v.view(torch.int16), host._v.view(torch.int16))
     np.testing.assert_allclose(scan._mask.cpu().numpy(), host._mask.cpu().numpy(), rtol=1e-6)
     assert (scan._mask.cpu().numpy()[[7, 300, 383]] < -1e38).all()
+
+
+def test_sharded_scan_rescore_four_logical_shards_on_card(cuda):
+    """parallel/mesh.py::sharded_scan_rescore over 4 logical shards of one
+    card launches the scan kernel once per shard and, on every query row
+    whose survivor bins lost no true neighbour on either side (the same id
+    set), returns the one-shard kernel's rescored answer bit for bit: the
+    same k_fetch makes the rescore the same [B, k_fetch, D] program."""
+    from qdrant_tpu_torch.parallel.mesh import Mesh, sharded_scan_rescore
+
+    rng = np.random.default_rng(9)
+    n_local, d, b, k, k_fetch = 65536, 128, 8, 10, 20
+    x = rng.standard_normal((4 * n_local, d)).astype(np.float32)
+    q = x[rng.integers(0, len(x), b)] + 0.5 * rng.standard_normal((b, d)).astype(np.float32)
+    dead = rng.random(len(x)) < 0.05
+    vsq = (x * x).sum(1)
+    v = torch.from_numpy(2 * x).to(cuda).to(torch.bfloat16)
+    bias = torch.from_numpy(np.where(dead, fs.NEG_INF, -vsq).astype(np.float32)).to(cuda)
+    rows = torch.from_numpy(x).to(cuda)
+    qd = torch.from_numpy(q).to(cuda)
+    one_s, one_i = sharded_scan_rescore(Mesh((cuda,)), qd, [v], [bias], [rows], 4096,
+                                        k_fetch, k, True)
+    mesh = Mesh((cuda,) * 4)
+    fs.fused_scan_survivors.launches = 0
+    four_s, four_i = sharded_scan_rescore(mesh, qd, list(v.split(n_local)),
+                                          list(bias.split(n_local)), list(rows.split(n_local)),
+                                          4096, k_fetch, k, True)
+    assert fs.fused_scan_survivors.launches == 4
+    one_s, one_i, four_s, four_i = (t.cpu().numpy() for t in (one_s, one_i, four_s, four_i))
+    same = [r for r in range(b) if set(one_i[r]) == set(four_i[r])]
+    assert len(same) >= b - 2
+    np.testing.assert_array_equal(four_i[same], one_i[same])
+    assert np.array_equal(four_s[same].view(np.int32), one_s[same].view(np.int32))
+    assert not dead[four_i[four_i >= 0]].any()

@@ -120,3 +120,30 @@ def test_scan_index_over_full_block(monkeypatch, distance):
     assert 7 not in got[1]
     mem = store.memory_usage_bytes()
     assert mem["device_bytes"] >= data.nbytes
+
+
+def test_scan_index_over_full_block_on_the_mesh(monkeypatch):
+    """With 4 logical devices the store's scan index is sharded: rows padded
+    to whole blocks on every shard, the shards views of the one bf16 block,
+    the rescore reading the device block itself; PlainIndex answers as over
+    a DenseVectorStore of the same rows (itself on the mesh)."""
+    from qdrant_tpu_torch import device
+
+    monkeypatch.setattr(device, "_LOGICAL", 4)
+    rng = np.random.default_rng(6)
+    store, data = _make_store(rng, n=300, d=24, distance=Distance.EUCLID, cap=384)
+    dense = DenseVectorStore(24, Distance.EUCLID)
+    dense.add(data[:300])
+    for s in (store, dense):
+        s.delete(7)
+    scan = store.scan_index()
+    assert scan.mesh.size == 4 and scan.n_pad == 4 * 4096 and len(scan._v) == 4
+    assert scan._rows_src is store._dev and scan._rows[0].data_ptr() == store._dev.data_ptr()
+    assert len({t.untyped_storage().data_ptr() for t in scan._v}) == 1
+    monkeypatch.setattr(plain, "SCAN_THRESHOLD", 128)
+    q = rng.normal(size=(3, 24)).astype(np.float32)
+    got, want = PlainIndex(store).search(q, 5), PlainIndex(dense).search(q, 5)
+    assert dense.scan_index().mesh.size == 4
+    np.testing.assert_array_equal(got[1], want[1])
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-5)
+    assert 7 not in got[1]

@@ -270,6 +270,7 @@ PORTED = {
     "__init__.py", "__main__.py", "collection/shard.py", "index/hnsw.py", "index/plain.py", "index/sparse.py",
     "ops/distances.py", "ops/hnsw.py", "ops/hnsw_build.py", "ops/hnsw_inline.py",
     "ops/quantization.py", "ops/scan.py", "ops/sparse.py",
+    "parallel/__init__.py", "parallel/mesh.py",
     "storage/segment.py", "storage/vectors.py", "tools/segment_inspector.py",
     "tools/wal_inspector.py", "utils/telemetry.py",
 }

@@ -77,11 +77,32 @@ def test_persistence_both_ways(tmp_path, monkeypatch):
     assert mem["host_bytes"] > 0 and mem["device_bytes"] > 0
 
 
-def test_sharded_directory_is_refused(tmp_path):
-    (tmp_path / "hnsw_sharded.npz").write_bytes(b"")
-    store = DenseVectorStore(4, Distance.DOT)
-    with pytest.raises(NotImplementedError, match="item 2"):
-        load_hnsw_any(str(tmp_path), store, HnswConfig())
+def test_sharded_directory_loads(tmp_path, monkeypatch):
+    """A sharded graph directory (`hnsw_sharded.npz`) loads through
+    load_hnsw_any onto a mesh of the saved size with the same answers, and a
+    mesh of another size rebuilds it for that size (the JAX load's rule).
+    The JAX files and their search against the JAX index: test_torch_mesh.py."""
+    from qdrant_tpu_torch import device
+    from qdrant_tpu_torch.index.hnsw import ShardedHnswIndex
+    from qdrant_tpu_torch.parallel.mesh import make_mesh
+
+    rng = np.random.default_rng(26)
+    x, q = clustered(rng, 1024, D)
+    store = DenseVectorStore(D, Distance.DOT)
+    store.add(x)
+    cfg = HnswConfig(m=8, ef_construct=32)
+    idx = ShardedHnswIndex(store, cfg, mesh=make_mesh(4))
+    idx.build()
+    _, before = idx.search(q, 10, ef=32)
+    idx.save(str(tmp_path / "g"))
+    monkeypatch.setattr(device, "_LOGICAL", 4)
+    same = load_hnsw_any(str(tmp_path / "g"), store, cfg)
+    assert isinstance(same, ShardedHnswIndex) and not same.build_stats
+    np.testing.assert_array_equal(same.search(q, 10, ef=32)[1], before)
+    monkeypatch.setattr(device, "_LOGICAL", 2)
+    rebuilt = load_hnsw_any(str(tmp_path / "g"), store, cfg)
+    assert rebuilt.n_shards == 2 and rebuilt.build_stats["shards"] == 2
+    assert rebuilt.n_per_shard == 512 and (rebuilt.search(q, 10, ef=32)[1] >= 0).all()
 
 
 def test_inline_gate_and_search_programs(monkeypatch):
