@@ -819,8 +819,7 @@ def run_rest(rng, storage, fs, phases, n=1_000_000, d=128, n_queries=64, threads
 
     from qdrant_tpu_torch.api.rest import RestServer
     from qdrant_tpu_torch.api.toc import TableOfContent
-    from qdrant_tpu_torch.ops import hnsw as hnsw_ops
-    from qdrant_tpu_torch.ops import hnsw_build, hnsw_inline
+    from qdrant_tpu_torch.utils import tracing
 
     toc = TableOfContent(storage)
     srv = RestServer(toc, host="127.0.0.1", port=0)
@@ -842,12 +841,12 @@ def run_rest(rng, storage, fs, phases, n=1_000_000, d=128, n_queries=64, threads
         ingest_s = time.perf_counter() - t0
         del payloads
         torch.cuda.reset_peak_memory_stats()
-        hnsw_build.insert_batch_level0.calls = 0
+        rounds_before = tracing.counters().get("build.insert_rounds", 0)
         t0 = time.perf_counter()
         toc.optimize_all()
         optimize_s = time.perf_counter() - t0
         seal_peak = torch.cuda.max_memory_allocated()
-        insert_rounds = hnsw_build.insert_batch_level0.calls
+        insert_rounds = tracing.counters().get("build.insert_rounds", 0) - rounds_before
         sealed = [s for s in coll.shards[0].segments if not s.appendable and len(s) == n]
         check(bool(sealed), "optimizer did not seal: "
               f"{[(len(s), s.appendable) for s in coll.shards[0].segments]}")
@@ -966,9 +965,8 @@ def run_rest(rng, storage, fs, phases, n=1_000_000, d=128, n_queries=64, threads
                 "inline_table_bytes": inline["table"].numel(),
                 "first_search_s": first_search_s, **windows, "filtered": filtered,
                 "search_max_memory_allocated_bytes": search_peak, **trace,
-                "beam_calls": {"inline": hnsw_inline.beam_search_inline.calls,
-                               "level": hnsw_ops.beam_search_level.calls,
-                               "acorn": hnsw_ops.beam_search_acorn.calls},
+                "beam_counters": {k: v for k, v in tracing.counters().items()
+                                  if k.startswith("beam.")},
             }
         return out
     finally:

@@ -37,6 +37,7 @@ import numpy as np
 from ..cluster.clock import ClockMap, ClockTag
 from ..storage.segment import SearchParams, Segment
 from ..storage.wal import open_wal
+from ..utils import tracing
 from ..types import (
     CollectionParams,
     Filter,
@@ -388,7 +389,7 @@ class LocalShard:
         params: Optional[SearchParams] = None,
     ) -> List[List[Tuple[float, PointId, int]]]:
         """→ per query: [(score, external_id, version)] merged over segments."""
-        with self._lock:
+        with self._lock, tracing.span("shard.batch", batches=1):
             return self._search_dense_locked(name, queries, k, flt, params)
 
     def search_dense_many(
@@ -407,7 +408,7 @@ class LocalShard:
         sustained throughput (reference analogue: the threadpool fan-out
         that keeps the engine saturated under concurrent load,
         segments_searcher.rs:212-306). → one result list per batch."""
-        with self._lock:
+        with self._lock, tracing.span("shard.batch", batches=len(batches)):
             batches = [
                 np.atleast_2d(np.asarray(q, dtype=np.float32)) for q in batches
             ]
@@ -422,6 +423,13 @@ class LocalShard:
                         seg.search_dense_dispatch(name, q, k, flt, params)
                     )
             resolved = Segment.sync_dispatches(handles)
+            return self._merge_many(batches, active, resolved, k)
+
+    @staticmethod
+    def _merge_many(batches, active, resolved, k):
+        """Per batch, per query: the segments' hits merged by external id
+        (the newest version wins), best first, cut to k."""
+        with tracing.span("shard.merge"):
             out_all: List[List[List[Tuple[float, PointId, int]]]] = []
             hi = 0
             for q in batches:
@@ -516,58 +524,61 @@ class LocalShard:
                 results = list(tp.map(run_seg, enumerate(active)))
         else:
             results = [run_seg(p) for p in enumerate(active)]
-        for i, seg, (scores, ids) in results:
+        # the per-hit merge on the host; the sampling re-runs below are
+        # device calls, their own spans, outside its self time
+        with tracing.span("shard.merge"):
+            for i, seg, (scores, ids) in results:
+                if use_sampling:
+                    finite = np.isfinite(scores)
+                    seg_counts[i] = finite.sum(axis=1)
+                    low = np.where(finite, scores, np.inf).min(axis=1)
+                    seg_lowest[i] = low
+                merge_one(seg, scores, ids, range(b))
+
             if use_sampling:
-                finite = np.isfinite(scores)
-                seg_counts[i] = finite.sum(axis=1)
-                low = np.where(finite, scores, np.inf).min(axis=1)
-                seg_lowest[i] = low
-            merge_one(seg, scores, ids, range(b))
-
-        if use_sampling:
-            # kth-best merged score per query (the sampling validity bar)
-            kth = np.full(b, -np.inf, dtype=np.float64)
-            for qi in range(b):
-                if len(merged[qi]) >= k:
-                    vals = sorted(
-                        (s for s, _v in merged[qi].values()), reverse=True
+                # kth-best merged score per query (the sampling validity bar)
+                kth = np.full(b, -np.inf, dtype=np.float64)
+                for qi in range(b):
+                    if len(merged[qi]) >= k:
+                        vals = sorted(
+                            (s for s, _v in merged[qi].values()), reverse=True
+                        )
+                        kth[qi] = vals[k - 1]
+                for i, seg in enumerate(active):
+                    k_i = seg_limits.get(i, k)
+                    if k_i >= k:
+                        continue
+                    saturated = (seg_counts[i] >= k_i) & (
+                        seg_lowest[i] >= kth
                     )
-                    kth[qi] = vals[k - 1]
-            for i, seg in enumerate(active):
-                k_i = seg_limits.get(i, k)
-                if k_i >= k:
-                    continue
-                saturated = (seg_counts[i] >= k_i) & (
-                    seg_lowest[i] >= kth
-                )
-                if not saturated.any():
-                    continue
-                # the sampled window may have cut real winners: re-run the
-                # affected queries on this segment without sampling
-                sub = np.nonzero(saturated)[0]
-                scores, ids = seg.search_dense(
-                    name, queries[sub], k, flt, params
-                )
-                remap = {int(j): int(orig) for j, orig in enumerate(sub)}
-                for j in range(len(sub)):
-                    qi = remap[j]
-                    for s, off in zip(scores[j], ids[j]):
-                        if off < 0 or not np.isfinite(s):
-                            continue
-                        ext = seg.id_tracker.external_id(int(off))
-                        if ext is None:
-                            continue
-                        ver = seg.id_tracker.version(int(off))
-                        prev = merged[qi].get(ext)
-                        if prev is None or ver > prev[1]:
-                            merged[qi][ext] = (float(s), ver)
+                    if not saturated.any():
+                        continue
+                    # the sampled window may have cut real winners: re-run the
+                    # affected queries on this segment without sampling
+                    sub = np.nonzero(saturated)[0]
+                    scores, ids = seg.search_dense(
+                        name, queries[sub], k, flt, params
+                    )
+                    remap = {int(j): int(orig) for j, orig in enumerate(sub)}
+                    for j in range(len(sub)):
+                        qi = remap[j]
+                        for s, off in zip(scores[j], ids[j]):
+                            if off < 0 or not np.isfinite(s):
+                                continue
+                            ext = seg.id_tracker.external_id(int(off))
+                            if ext is None:
+                                continue
+                            ver = seg.id_tracker.version(int(off))
+                            prev = merged[qi].get(ext)
+                            if prev is None or ver > prev[1]:
+                                merged[qi][ext] = (float(s), ver)
 
-        out = []
-        for qi in range(b):
-            items = [(s, ext, ver) for ext, (s, ver) in merged[qi].items()]
-            items.sort(key=lambda t: -t[0])
-            out.append(items[:k])
-        return out
+            out = []
+            for qi in range(b):
+                items = [(s, ext, ver) for ext, (s, ver) in merged[qi].items()]
+                items.sort(key=lambda t: -t[0])
+                out.append(items[:k])
+            return out
 
     def search_sparse(
         self,
@@ -719,6 +730,7 @@ class LocalShard:
     # optimizer (reference: optimizers/segment_optimizer.rs plan/execute)
     # ------------------------------------------------------------------
 
+    @tracing.traced("shard.optimize")
     def maybe_optimize(self) -> bool:
         """Run one optimization cycle: plan under the shard lock, defragment
         under the lock (host copy, fast), build indexes with the lock RELEASED
@@ -784,10 +796,12 @@ class LocalShard:
                     return [seg], not bool(seg.hnsw), bool(seg.hnsw)
         return None
 
+    @tracing.traced("shard.defragment")
     def _defragment_into(self, sources: List[Segment], appendable: bool) -> Segment:
         """New segment from the live points of `sources` (drops deleted rows —
         the reference SegmentBuilder::update collect phase)."""
         seg = self._new_segment(appendable)
+        points = 0
         for src in sources:
             for field, p in src.payload_index.indexed_fields().items():
                 if field not in seg.payload_index.indexed_fields():
@@ -800,17 +814,21 @@ class LocalShard:
                 vectors = _decode_vectors(src.get_vectors(ext) or {})
                 payload = src.get_payload(ext)
                 seg.upsert_point(version, ext, vectors, payload)
+                points += 1
         seg.version = max((s.version for s in sources), default=0)
+        tracing.count("defragment.points", points)
         return seg
 
+    @tracing.traced("shard.swap")
     def _swap(self, old: List[Segment], new: Segment) -> None:
         remaining = [s for s in self.segments if s not in old]
-        for seg in old:
-            name = self._segment_dirs.pop(id(seg), None)
-            if name:
-                full = os.path.join(self._segments_root(), name)
-                if os.path.isdir(full):
-                    shutil.rmtree(full)
+        with tracing.span("shard.rmtree"):
+            for seg in old:
+                name = self._segment_dirs.pop(id(seg), None)
+                if name:
+                    full = os.path.join(self._segments_root(), name)
+                    if os.path.isdir(full):
+                        shutil.rmtree(full)
         # single reference assignment: unlocked readers iterating the old
         # list keep a consistent snapshot
         self.segments = remaining
@@ -835,11 +853,12 @@ class LocalShard:
         covers it or the data is absent entirely) — the caller re-runs the
         load, same contract as the reference's snapshot-based bulk
         recovery."""
-        with self._lock:
-            existing = [
-                pid for pid in ids
-                if any(s.id_tracker.contains(pid) for s in self.segments)
-            ]
+        with self._lock, tracing.span("shard.bulk_ingest", points=len(ids)):
+            with tracing.span("shard.check_ids"):
+                existing = [
+                    pid for pid in ids
+                    if any(s.id_tracker.contains(pid) for s in self.segments)
+                ]
             if existing:
                 raise ShardUpdateError(
                     f"bulk_ingest: {len(existing)} ids already exist "
@@ -853,7 +872,8 @@ class LocalShard:
                 }
             )
             seg = self.appendable_segment
-            seg.bulk_ingest(op_num, ids, dense, payloads)
+            with tracing.span("segment.bulk_ingest"):
+                seg.bulk_ingest(op_num, ids, dense, payloads)
             self._flush_locked()
         return {"operation_id": op_num, "status": "completed"}
 
@@ -861,6 +881,7 @@ class LocalShard:
         with self._lock:
             self._flush_locked()
 
+    @tracing.traced("shard.flush")
     def _flush_locked(self) -> None:
         root = self._segments_root()
         os.makedirs(root, exist_ok=True)

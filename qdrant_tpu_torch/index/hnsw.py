@@ -37,6 +37,7 @@ from ..ops.distances import preprocess_vectors
 from ..parallel.mesh import make_mesh, place_rows, shard_slices, sharded_hnsw_search
 from ..storage.vectors import DenseVectorStore
 from ..types import Distance, HnswConfig
+from ..utils import tracing
 from ..utils.budget import BUDGET
 
 INC_CAP = 64  # max reverse-link insertions routed to one node per round
@@ -67,6 +68,13 @@ def _sync(t: Optional[torch.Tensor]) -> None:
     """Wait for everything queued on `t`'s device (no-op on the CPU)."""
     if t is not None and t.is_cuda:
         torch.cuda.synchronize(t.device)
+
+
+def _build_sync(t: Optional[torch.Tensor]) -> None:
+    """A build's wait for the device: its `build.sync` span is the share of
+    the build's wall time in which the host had nothing left to queue."""
+    with tracing.span("build.sync"):
+        _sync(t)
 
 
 def _to_host(t: torch.Tensor, dtype) -> np.ndarray:
@@ -258,6 +266,7 @@ class HnswIndex:
     # build
     # ------------------------------------------------------------------
 
+    @tracing.traced("hnsw.build")
     def build(
         self,
         batch_size: int = 1024,
@@ -361,13 +370,14 @@ class HnswIndex:
             bsz = min(cur_batch, n_alive - inserted)
             batch = order[inserted : inserted + bsz]
             self._insert_batch(batch, vectors, efc, dist, pad_to=cur_batch)
+            tracing.count("build.batches")
             inserted += bsz
             if progress_fn:
                 progress_fn(inserted, n_alive)
             BUDGET.yield_to_searches()
 
         self._heal_low_indegree(order)
-        _sync(self._links0_dev)
+        _build_sync(self._links0_dev)
 
     def _build_device(
         self, order: np.ndarray, n_seed: int, n_alive: int, efc: int,
@@ -530,6 +540,7 @@ class HnswIndex:
                 inc_cap=inc_cap, ov_cap=b_pad, euclid=euclid, sel_c=sel_c,
             )
             inserted += bsz
+            tracing.count("build.batches")
             if progress_fn:
                 progress_fn(inserted, n_alive)
             # Backpressure: launches are asynchronous, so without a periodic
@@ -538,7 +549,7 @@ class HnswIndex:
             # batches (every batch under contention) bounds the queue.
             batches_since_sync += 1
             if sync_every and (contended or batches_since_sync >= sync_every):
-                _sync(links0_dev)
+                _build_sync(links0_dev)
                 batches_since_sync = 0
             # let queued searches run before the next build batch
             BUDGET.yield_to_searches()
@@ -582,7 +593,7 @@ class HnswIndex:
         # build() must mean BUILT: the loop above only queues its work, so
         # without this barrier the first search after the build would wait
         # for it, and a wall-clock "build seconds" would time the queueing
-        _sync(self._links0_dev)
+        _build_sync(self._links0_dev)
 
     def _heal_low_indegree(
         self, order: np.ndarray, min_indegree: int = 8, force_links: int = 6
@@ -707,6 +718,7 @@ class HnswIndex:
             sel = hnsw_ops.select_neighbors(beam_ids, beam_scores, vectors, m_l, dist)
             sel_np = _to_host(sel, np.int32)[:kl]
 
+            tracing.count("build.insert_rounds")
             rows = self._row_of(l, batch[:kl])
             self._scatter(l, rows, sel_np)
             self._apply_reverse_links(l, batch[:kl], sel_np, vectors, dist)
@@ -882,6 +894,7 @@ class HnswIndex:
         self._inline = {"table": table, "scale": scale, "m0": m0, "d": d}
         return self._inline
 
+    @tracing.traced("hnsw.search")
     def search(
         self,
         queries: np.ndarray,  # [B, D] raw queries
@@ -906,14 +919,15 @@ class HnswIndex:
         dist = self.distance.value
         ef_eff = max(ef or self.config.ef_construct, k)
 
-        cur = torch.full((b_pad,), self.entry, dtype=torch.int32, device=dev)
-        cur_scores = hnsw_ops.score_ids_batch(q_dev, vectors, cur[:, None], dist)[:, 0]
-        upper = self._upper_device()
-        if upper is not None:
-            cur, cur_scores = hnsw_ops.greedy_descend_stack(
-                q_dev, vectors, upper, self._rank_device(), self._stack_counts(),
-                cur, cur_scores, dist,
-            )
+        with tracing.span("hnsw.descend"):
+            cur = torch.full((b_pad,), self.entry, dtype=torch.int32, device=dev)
+            cur_scores = hnsw_ops.score_ids_batch(q_dev, vectors, cur[:, None], dist)[:, 0]
+            upper = self._upper_device()
+            if upper is not None:
+                cur, cur_scores = hnsw_ops.greedy_descend_stack(
+                    q_dev, vectors, upper, self._rank_device(), self._stack_counts(),
+                    cur, cur_scores, dist,
+                )
 
         mask_dev = None
         if filter_mask is not None:
@@ -943,44 +957,13 @@ class HnswIndex:
             * float(os.environ.get("QDRANT_TPU_SEARCH_ITERS_MULT", "1"))
         )
         inline = None if (acorn and mask_dev is not None) else self._inline_state()
-        if acorn and mask_dev is not None:
-            self.served["acorn"] += 1
-            beam_scores, beam_ids = hnsw_ops.beam_search_acorn(
-                q_dev, vectors, self._links0_device(), entries2d, mask_dev,
-                ef_eff, max_iters, dist, compact_of=self._rank_device(),
-            )
-        elif inline is not None:
-            from ..ops.hnsw_inline import beam_search_inline
-
-            self.served["inline"] += 1
-            scale = inline["scale"]
-            q_i8 = torch.from_numpy(
-                np.clip(np.round(q / scale), -127, 127).astype(np.int8)
-            ).to(dev)
-            euclid = self.distance is Distance.EUCLID
-            fbias = None
-            if filter_mask is not None:
-                cap = vectors.shape[0]
-                fb = np.full(cap, -np.inf, dtype=np.float32)
-                fb[: len(filter_mask)] = np.where(filter_mask, 0.0, -np.inf)
-                fbias = torch.from_numpy(fb).to(dev)
-            expand = 4
-            beam_scores, beam_ids = beam_search_inline(
-                q_dev, q_i8, inline["table"],
-                float(np.float32((2.0 if euclid else 1.0) * scale * scale)),
-                self._rank_device(), vectors, entries2d, fbias,
-                m=inline["m0"], d=inline["d"], ef=ef_eff,
-                iters=max(max_iters // expand, 8), expand=expand,
-                euclid=euclid, k=ef_eff,
-            )
-        else:
-            self.served["level"] += 1
-            beam_scores, beam_ids = hnsw_ops.beam_search_level(
-                q_dev, vectors, self._links0_device(), entries2d, mask_dev,
-                ef_eff, max_iters, dist, compact_of=self._rank_device(),
-            )
-        scores = _to_host(beam_scores, np.float32)[:b]
-        ids = _to_host(beam_ids, np.int32)[:b]
+        with tracing.span("hnsw.beam"):
+            beam_scores, beam_ids = self._beam(
+                q, q_dev, vectors, entries2d, mask_dev, filter_mask, inline, acorn,
+                ef_eff, max_iters, dist)
+        with tracing.span("device.fetch"):
+            scores = _to_host(beam_scores, np.float32)[:b]
+            ids = _to_host(beam_ids, np.int32)[:b]
         # entries bypass the filter inside the beam; enforce it here
         if filter_mask is not None:
             ok = (ids >= 0) & filter_mask[np.maximum(ids, 0)]
@@ -998,10 +981,53 @@ class HnswIndex:
             np.pad(ids, ((0, 0), (0, pad)), constant_values=-1),
         )
 
+    def _beam(self, q, q_dev, vectors, entries2d, mask_dev, filter_mask, inline, acorn,
+              ef_eff, max_iters, dist):
+        """The level-0 beam a search takes: ACORN under a selective filter,
+        else the inline link + code table where it is built, else the level
+        program → device (scores, ids)."""
+        dev = vectors.device
+        if acorn and mask_dev is not None:
+            self.served["acorn"] += 1
+            return hnsw_ops.beam_search_acorn(
+                q_dev, vectors, self._links0_device(), entries2d, mask_dev,
+                ef_eff, max_iters, dist, compact_of=self._rank_device(), counter="beam",
+            )
+        if inline is not None:
+            from ..ops.hnsw_inline import beam_search_inline
+
+            self.served["inline"] += 1
+            scale = inline["scale"]
+            q_i8 = torch.from_numpy(
+                np.clip(np.round(q / scale), -127, 127).astype(np.int8)
+            ).to(dev)
+            euclid = self.distance is Distance.EUCLID
+            fbias = None
+            if filter_mask is not None:
+                cap = vectors.shape[0]
+                fb = np.full(cap, -np.inf, dtype=np.float32)
+                fb[: len(filter_mask)] = np.where(filter_mask, 0.0, -np.inf)
+                fbias = torch.from_numpy(fb).to(dev)
+            expand = 4
+            return beam_search_inline(
+                q_dev, q_i8, inline["table"],
+                float(np.float32((2.0 if euclid else 1.0) * scale * scale)),
+                self._rank_device(), vectors, entries2d, fbias,
+                m=inline["m0"], d=inline["d"], ef=ef_eff,
+                iters=max(max_iters // expand, 8), expand=expand,
+                euclid=euclid, k=ef_eff, counter="beam",
+            )
+        self.served["level"] += 1
+        return hnsw_ops.beam_search_level(
+            q_dev, vectors, self._links0_device(), entries2d, mask_dev,
+            ef_eff, max_iters, dist, compact_of=self._rank_device(), counter="beam",
+        )
+
     # ------------------------------------------------------------------
     # persistence (the JAX package's files)
     # ------------------------------------------------------------------
 
+    @tracing.traced("hnsw.save")
     def save(self, path: str) -> None:
         os.makedirs(path, exist_ok=True)
         np.savez_compressed(
@@ -1083,6 +1109,7 @@ class ShardedHnswIndex:
 
     # -- build ----------------------------------------------------------
 
+    @tracing.traced("hnsw.build")
     def build(self, batch_size: int = 1024, ef_construct: Optional[int] = None,
               progress_fn=None) -> None:
         """Build one subgraph per shard; `build_stats` gives the seconds of
@@ -1119,7 +1146,7 @@ class ShardedHnswIndex:
         alive = np.zeros(s_count * np_local, dtype=bool)
         alive[:n] = alive_mask[:n]
         self._install(links, entries, alive, np_local)
-        _sync(links)
+        _build_sync(links)
         self.build_stats = {
             "points": int(sum(st["points"] for st in shard_stats)),
             "shards": s_count,
@@ -1157,6 +1184,7 @@ class ShardedHnswIndex:
             hit = self._mask_cache[key] = place_rows(torch.from_numpy(mask), self.mesh)
         return hit
 
+    @tracing.traced("hnsw.search")
     def search(
         self,
         queries: np.ndarray,
@@ -1182,12 +1210,15 @@ class ShardedHnswIndex:
             mask = mask & fm
         ef_eff = max(ef or self.config.ef_construct, k)
         self.served["level"] += 1
-        s, ids = sharded_hnsw_search(
-            self.mesh, torch.from_numpy(q).to(self.mesh.devices[0]), self._v, self._links,
-            self._entries, self._mask_sharded(mask), self.distance.value, ef_eff, k,
-        )
-        scores = _to_host(s, np.float32)[:b]
-        out_ids = _to_host(ids, np.int32)[:b]
+        with tracing.span("hnsw.beam"):
+            s, ids = sharded_hnsw_search(
+                self.mesh, torch.from_numpy(q).to(self.mesh.devices[0]), self._v,
+                self._links, self._entries, self._mask_sharded(mask),
+                self.distance.value, ef_eff, k,
+            )
+        with tracing.span("device.fetch"):
+            scores = _to_host(s, np.float32)[:b]
+            out_ids = _to_host(ids, np.int32)[:b]
         # per-shard entry points bypass the in-beam filter (traversal must be
         # able to start anywhere): enforce alive and the filter on the merged
         # results, then re-sort (stable)
@@ -1220,6 +1251,7 @@ class ShardedHnswIndex:
 
     # -- persistence (the JAX package's files) ----------------------------
 
+    @tracing.traced("hnsw.save")
     def save(self, path: str) -> None:
         os.makedirs(path, exist_ok=True)
         np.savez_compressed(

@@ -19,6 +19,7 @@ from ..types import Distance
 
 from ..ops.distances import preprocess_vectors, score_and_topk
 from ..storage.vectors import DenseVectorStore
+from ..utils import tracing
 
 # Above this size the fused scan beats materializing [B, N] scores + top-k.
 SCAN_THRESHOLD = 65536
@@ -44,7 +45,8 @@ def finalize_device_result(
 def fetch_to_host(pairs: List[Tuple[Any, Any]]) -> List[Tuple[np.ndarray, np.ndarray]]:
     """Bring device (scores, ids) pairs to the host in ONE device→host copy:
     scores and int32 ids (bit-cast to f32) are flattened, concatenated and
-    copied together, then split on the host."""
+    copied together, then split on the host. Its `device.fetch` span is the
+    serving host's wait for the device."""
     if not pairs:
         return []
     parts, shapes = [], []
@@ -53,7 +55,8 @@ def fetch_to_host(pairs: List[Tuple[Any, Any]]) -> List[Tuple[np.ndarray, np.nda
         i = i.to(torch.int32)
         shapes.append((s.shape, i.shape))
         parts += [s.reshape(-1), i.reshape(-1).view(torch.float32)]
-    flat = torch.cat(parts).cpu().numpy()
+    with tracing.span("device.fetch"):
+        flat = torch.cat(parts).cpu().numpy()
     out, off = [], 0
     for s_shape, i_shape in shapes:
         ns, ni = int(np.prod(s_shape)), int(np.prod(i_shape))

@@ -32,6 +32,7 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils import tracing
 from .distances import pairwise_scores, score_ids_batch
 
 NEG_INF = float(-np.inf)
@@ -60,17 +61,30 @@ def take_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
 
 def run_until_idle(
     step: Callable, state, active: Callable, iters: int,
-    check_every: Optional[int] = CHECK_EVERY,
+    check_every: Optional[int] = CHECK_EVERY, counter: Optional[str] = None,
 ):
     """`state = step(state, it)` for it in range(iters), ending early once
     `active(state)` is false. The flag is read every `check_every` turns
     (None: never, all `iters` turns run); `step` must leave an inactive state
-    unchanged, so where the loop ends does not show in the result."""
+    unchanged, so where the loop ends does not show in the result. With a
+    `counter`, the turns taken and the flag reads (each a host sync) are
+    added to `<counter>.turns` and `<counter>.flag_reads` (utils/tracing.py)."""
+    turns = reads = 0
     for it in range(iters):
-        if check_every and it % check_every == 0 and not bool(active(state)):
-            break
+        if check_every and it % check_every == 0:
+            reads += 1
+            if not bool(active(state)):
+                break
         state = step(state, it)
+        turns += 1
+    _count_turns(counter, turns, reads)
     return state
+
+
+def _count_turns(counter: Optional[str], turns: int, reads: int) -> None:
+    if counter:
+        tracing.count(counter + ".turns", turns)
+        tracing.count(counter + ".flag_reads", reads)
 
 
 def dup_earlier(ids: torch.Tensor) -> torch.Tensor:
@@ -217,11 +231,11 @@ def beam_search_acorn(
     compact_of: Optional[torch.Tensor] = None,
     expand: int = 4,
     check_every: Optional[int] = CHECK_EVERY,
+    counter: Optional[str] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Filtered beam search in the spirit of ACORN: the beam traverses the
     UNFILTERED graph (so low-selectivity filters cannot strand it), while a
     separate result set accumulates only filter-matching candidates."""
-    beam_search_acorn.calls += 1
     b = queries.shape[0]
     e_x = expand
     iters = max(max_iters // e_x, 8)
@@ -263,11 +277,9 @@ def beam_search_acorn(
 
     state = (beam_ids, beam_scores, beam_exp, res_ids, res_scores)
     _, _, _, res_ids, res_scores = run_until_idle(
-        step, state, lambda st: _has_candidate(st[0], st[2]), iters, check_every)
+        step, state, lambda st: _has_candidate(st[0], st[2]), iters, check_every,
+        counter)
     return res_scores, res_ids
-
-
-beam_search_acorn.calls = 0
 
 
 def level_beam_loop(
@@ -285,7 +297,6 @@ def level_beam_loop(
     """The loop of `beam_search_level`, not yet run → (state, step, active,
     iters) for `run_until_idle`, or for `run_all_until_idle` beside other
     beams. The final state is (beam_ids, beam_scores, beam_exp)."""
-    beam_search_level.calls += 1
     b = queries.shape[0]
     e_x = expand
     iters = max(max_iters // e_x, 8)
@@ -318,24 +329,30 @@ def level_beam_loop(
     return state, step, lambda st: _has_candidate(st[0], st[2]), iters
 
 
-def run_all_until_idle(loops, check_every: Optional[int] = CHECK_EVERY):
+def run_all_until_idle(loops, check_every: Optional[int] = CHECK_EVERY,
+                       counter: Optional[str] = None):
     """`run_until_idle` over several (state, step, active, iters) loops in
     lockstep → their final states. Every loop still running takes one turn
     per round; every `check_every` rounds one idle check reads all of their
     flags. Each loop ends where `run_until_idle` would end it alone, so its
     state is the same; when the loops lie on several cards, all of them have
-    a stride of turns queued before the host waits on any."""
+    a stride of turns queued before the host waits on any. `counter` as in
+    `run_until_idle`: the turns count rounds, the flag reads every flag."""
     states = [lp[0] for lp in loops]
     running = list(range(len(loops)))
+    turns = reads = 0
     for it in range(max((lp[3] for lp in loops), default=0)):
         if check_every and it % check_every == 0:
             flags = [bool(loops[i][2](states[i])) for i in running]
+            reads += len(flags)
             running = [i for i, on in zip(running, flags) if on]
         running = [i for i in running if it < loops[i][3]]
         if not running:
             break
         for i in running:
             states[i] = loops[i][1](states[i], it)
+        turns += 1
+    _count_turns(counter, turns, reads)
     return states
 
 
@@ -351,6 +368,7 @@ def beam_search_level(
     compact_of: Optional[torch.Tensor] = None,  # [N] int32 global→row in `links`
     expand: int = 4,
     check_every: Optional[int] = CHECK_EVERY,
+    counter: Optional[str] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Batched beam search on one level → (scores [B, ef], ids [B, ef]).
 
@@ -362,11 +380,9 @@ def beam_search_level(
     state, step, active, iters = level_beam_loop(
         queries, vectors, links, entry_ids, filter_mask, ef, max_iters, distance,
         compact_of, expand)
-    beam_ids, beam_scores, _ = run_until_idle(step, state, active, iters, check_every)
+    beam_ids, beam_scores, _ = run_until_idle(step, state, active, iters, check_every,
+                                              counter)
     return beam_scores, beam_ids
-
-
-beam_search_level.calls = 0
 
 
 def select_by_heuristic(

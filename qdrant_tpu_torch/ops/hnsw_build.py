@@ -25,6 +25,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils import tracing
 from .hnsw import (
     NEG_INF,
     _has_candidate,
@@ -169,7 +170,7 @@ def insert_batch_level0(
     re-inserted against the final adjacency): the point's existing row links
     join the candidate set before heuristic selection, so reverse-appended
     links survive the row overwrite when they win on score."""
-    insert_batch_level0.calls += 1
+    tracing.count("build.insert_rounds")
     b = batch_ids.shape[0]
     dev = links.device
     scale_sq = float(np.float32(scale_sq))
@@ -307,6 +308,3 @@ def insert_batch_level0(
     counts[spare] = 0
 
     return links, counts, beam_ids
-
-
-insert_batch_level0.calls = 0

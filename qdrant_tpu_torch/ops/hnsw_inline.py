@@ -148,9 +148,10 @@ def beam_search_inline(
     euclid: bool,
     k: int,
     check_every: Optional[int] = CHECK_EVERY,
+    counter: Optional[str] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """-> (exact scores [B, k], global ids [B, k]); -1 padded."""
-    beam_search_inline.calls += 1
+    """-> (exact scores [B, k], global ids [B, k]); -1 padded. `counter` as in
+    `run_until_idle`."""
     b = q_f32.shape[0]
     e_x = expand
     kk = e_x * m
@@ -220,7 +221,7 @@ def beam_search_inline(
 
     st = (beam_ids, beam_scores, beam_exp, res_scores, res_ids)
     beam_ids, beam_scores, _, res_scores, res_ids = run_until_idle(
-        step, st, lambda s: _has_candidate(s[0], s[2]), iters, check_every)
+        step, st, lambda s: _has_candidate(s[0], s[2]), iters, check_every, counter)
 
     # exact f32 rescore of the final set (one [B, ef]-row gather); filtered
     # searches rank the result accumulator, not the traversal beam
@@ -234,6 +235,3 @@ def beam_search_inline(
     top_s, ti = topk_first(re, k)
     top_i = torch.where(torch.isfinite(top_s), out_ids.gather(1, ti), -1)
     return top_s, top_i
-
-
-beam_search_inline.calls = 0

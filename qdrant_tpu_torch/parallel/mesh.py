@@ -175,7 +175,8 @@ def sharded_hnsw_search(
     loops = _beam_loops(mesh, queries, vectors, links, entries, filter_mask, distance,
                         ef, 2 * ef + 16)
     scores, gids = [], []
-    for s, (beam_ids, beam_scores, _) in enumerate(hnsw_ops.run_all_until_idle(loops)):
+    states = hnsw_ops.run_all_until_idle(loops, counter="beam")
+    for s, (beam_ids, beam_scores, _) in enumerate(states):
         ls, idx = hnsw_ops.topk_first(beam_scores, min(k, beam_scores.shape[1]))
         scores.append(ls)
         gids.append(_offset_ids(beam_ids.gather(1, idx), s, links[s].shape[0]))

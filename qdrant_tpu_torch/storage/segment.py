@@ -65,7 +65,7 @@ from ..types import (
     TurboQuantizationConfig,
     VectorParams,
 )
-from ..utils import hw_counter
+from ..utils import hw_counter, tracing
 from ..utils.budget import BUDGET
 
 from ..index.hnsw import HnswIndex, ShardedHnswIndex, load_hnsw_any
@@ -607,6 +607,7 @@ class Segment:
                 counts[value] = c
         return counts
 
+    @tracing.traced("segment.alive_mask")
     def alive_mask(self) -> np.ndarray:
         """Mask of offsets currently linked to an external id and visible
         (deferred heads excluded until confirmed)."""
@@ -727,6 +728,13 @@ class Segment:
             dims=store.dim,
             filter_evals=1 if fmask is not None else 0,
         )
+        with tracing.span("segment.dispatch"):
+            return self._dispatch_masked(name, store, queries, k, flt, params,
+                                         fmask, combined)
+
+    def _dispatch_masked(self, name, store, queries, k, flt, params, fmask, combined):
+        """`_search_dense_dispatch` once the masks are made: the payload-block
+        subgraph, the graph, the quantized scan or the exact scan."""
         vp = self.params.vectors[name]
         hnsw = self.hnsw.get(name)
         ef = params.hnsw_ef or max(k, 64)
@@ -776,7 +784,8 @@ class Segment:
         quant = None if params.quantization_ignore else self.quantized.get(name)
         if quant is not None and not params.exact:
             return self._search_quantized(name, quant, queries, k, combined, params)
-        return ("dev", PlainIndex(store).search_device(queries, k, combined), k)
+        with tracing.span("scan.step"):
+            return ("dev", PlainIndex(store).search_device(queries, k, combined), k)
 
     def _should_use_graph(
         self,
@@ -985,6 +994,7 @@ class Segment:
             return s[:, :k], cand[:, :k]
         return self._host_rescore(store, q, cand, k)
 
+    @tracing.traced("sq.step")
     def _search_sq_kernel(
         self, quant, store, q: np.ndarray, k: int, k_over: int,
         mask: np.ndarray, params: SearchParams,
@@ -1004,19 +1014,20 @@ class Segment:
         # rows differently into the same 2,048 survivors.
         blk, slots = fs.scan_grid(n_pad, k_over)
         euclid = store.distance in (Distance.EUCLID, Distance.MANHATTAN)
-        mask_pad = np.zeros(n_pad, dtype=bool)
-        mask_pad[: len(mask)] = mask[:n_pad]
-        bias = np.where(
-            mask_pad, -norms_host if euclid else 0.0, fs.NEG_INF
-        ).astype(np.float32)
+        dev = codes_dev.device
+        with tracing.span("sq.bias_upload"):
+            mask_pad = np.zeros(n_pad, dtype=bool)
+            mask_pad[: len(mask)] = mask[:n_pad]
+            bias = np.where(
+                mask_pad, -norms_host if euclid else 0.0, fs.NEG_INF
+            ).astype(np.float32)
+            bias_dev = torch.from_numpy(bias).to(dev)
         scale_sq = (2.0 if euclid else 1.0) * quant.scale * quant.scale
         b = q.shape[0]
         b_pad = max(8, (b + 7) // 8 * 8)
         q_codes = np.zeros((b_pad, codes_dev.shape[1]), dtype=np.int8)
         q_codes[:b, : q.shape[1]] = quant.encode_queries(q)
-        dev = codes_dev.device
         q_codes_dev = torch.from_numpy(q_codes).to(dev)
-        bias_dev = torch.from_numpy(bias).to(dev)
         kk = min(k, k_over)
         if params.quantization_rescore:
             vectors_f32, _ = store.device_block()
@@ -1136,6 +1147,7 @@ class Segment:
     # seal
     # ------------------------------------------------------------------
 
+    @tracing.traced("segment.build_indexes")
     def build_indexes(self, default_hnsw: Optional[HnswConfig] = None) -> None:
         """Seal the segment. Every multivector with live points gets an HNSW
         graph over its mean-pooled proxy rows. Every resident dense vector
@@ -1192,13 +1204,15 @@ class Segment:
             qc = vp.quantization_config
             if qc is None:
                 if len(store) >= SCAN_THRESHOLD:  # PlainIndex's own gate
-                    store.scan_index()
+                    with tracing.span("segment.scan_block"):
+                        store.scan_index()
                 continue
             if len(store) == 0:
                 continue
-            quant = _encode(qc, store.host_array)
-            self.quantized[name] = quant
-            _upload_codes(quant, store, DEFAULT_BLK)
+            with tracing.span("segment.quantize"):
+                quant = _encode(qc, store.host_array)
+                self.quantized[name] = quant
+                _upload_codes(quant, store, DEFAULT_BLK)
         self.appendable = False
 
     # ------------------------------------------------------------------
@@ -1206,6 +1220,7 @@ class Segment:
     # ------------------------------------------------------------------
 
     def save(self, path: str) -> None:
+        written = _thread_bytes_written()
         os.makedirs(path, exist_ok=True)
         meta = {
             "format_version": SEGMENT_FORMAT_VERSION,
@@ -1253,6 +1268,8 @@ class Segment:
                 sub.save(os.path.join(path, f"hnsw_block_{_safe(name)}_{i}"))
         for name, q in self.quantized.items():
             q.save(os.path.join(path, f"quant_{_safe(name)}"))
+        if written is not None:
+            tracing.count("flush.bytes", _thread_bytes_written() - written)
 
     @classmethod
     def load(cls, path: str) -> "Segment":
@@ -1325,6 +1342,20 @@ class Segment:
             for store in seg.dense.values():
                 store.drop_device()
         return seg
+
+
+def _thread_bytes_written() -> Optional[int]:
+    """Bytes this thread has passed to write calls (`wchar` of
+    /proc/thread-self/io) → None where the kernel does not say. Writes
+    through a memory map are not among them."""
+    try:
+        with open("/proc/thread-self/io") as f:
+            for line in f:
+                if line.startswith("wchar:"):
+                    return int(line.split(":", 1)[1])
+    except OSError:
+        pass
+    return None
 
 
 def _candidates(top_scores: torch.Tensor, top_ids: torch.Tensor) -> np.ndarray:

@@ -167,6 +167,10 @@ def build_telemetry(toc, level: int = 2) -> Dict[str, Any]:
         "requests": METRICS.telemetry(detail=level >= 1),
     }
     if level >= 1:
+        from . import tracing
+
+        # the port's spans per path and its counters (utils/tracing.py)
+        data["tracing"] = {"spans": tracing.aggregates(), "counters": tracing.counters()}
         data["memory"] = _memory_telemetry()
         data["hardware"] = _hardware_telemetry()
         quota = getattr(toc, "quota", None)

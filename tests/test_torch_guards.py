@@ -252,7 +252,6 @@ COPIED = [
     "utils/inference.py",
     "utils/json_path.py",
     "utils/memsize.py",
-    "utils/microbatch.py",
     "utils/observability.py",
     "utils/quota.py",
     "utils/rate_limiter.py",
@@ -272,7 +271,7 @@ PORTED = {
     "ops/quantization.py", "ops/scan.py", "ops/sparse.py",
     "parallel/__init__.py", "parallel/mesh.py",
     "storage/segment.py", "storage/vectors.py", "tools/segment_inspector.py",
-    "tools/wal_inspector.py", "utils/telemetry.py",
+    "tools/wal_inspector.py", "utils/microbatch.py", "utils/telemetry.py",
 }
 
 
