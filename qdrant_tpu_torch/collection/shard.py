@@ -799,24 +799,31 @@ class LocalShard:
     @tracing.traced("shard.defragment")
     def _defragment_into(self, sources: List[Segment], appendable: bool) -> Segment:
         """New segment from the live points of `sources` (drops deleted rows —
-        the reference SegmentBuilder::update collect phase)."""
+        the reference SegmentBuilder::update collect phase), each source's in
+        sorted external-id order. They are appended as arrays
+        (`Segment.append_from`), unless an id is in more than one source:
+        then upsert_point's version check merges them one point at a time."""
         seg = self._new_segment(appendable)
-        points = 0
+        shared = len(sources) > 1 and len(
+            set().union(*(s.id_tracker.external_ids() for s in sources))
+        ) < sum(len(s) for s in sources)
+        points = bulk = 0
         for src in sources:
             for field, p in src.payload_index.indexed_fields().items():
                 if field not in seg.payload_index.indexed_fields():
                     seg.create_field_index(field, p)
-            for ext in src.id_tracker.iter_sorted_external():
-                internal = src.id_tracker.internal_id(ext)
-                if internal is None:
-                    continue
-                version = src.id_tracker.version(internal)
+            externals = src.id_tracker.iter_sorted_external()
+            points += len(externals)
+            if not shared:
+                bulk += seg.append_from(src, externals)
+                continue
+            for ext in externals:
+                version = src.point_version(ext)
                 vectors = _decode_vectors(src.get_vectors(ext) or {})
-                payload = src.get_payload(ext)
-                seg.upsert_point(version, ext, vectors, payload)
-                points += 1
+                seg.upsert_point(version, ext, vectors, src.get_payload(ext))
         seg.version = max((s.version for s in sources), default=0)
         tracing.count("defragment.points", points)
+        tracing.count("defragment.bulk_rows", bulk)
         return seg
 
     @tracing.traced("shard.swap")

@@ -36,7 +36,7 @@ def preprocess_vectors(vectors: np.ndarray, distance: Distance) -> np.ndarray:
     if distance is Distance.COSINE:
         norms = np.linalg.norm(vectors, axis=-1, keepdims=True)
         norms = np.where(norms == 0.0, 1.0, norms)
-        return (vectors / norms).astype(np.float32)
+        return (vectors / norms).astype(np.float32, copy=False)
     return np.asarray(vectors, dtype=np.float32)
 
 

@@ -115,7 +115,9 @@ class DenseVectorStore:
         self._disk_path = path
         return np.memmap(path, dtype=np.float32, mode="r+", shape=(cap, self.dim))
 
-    def _ensure_capacity(self, n: int) -> None:
+    def reserve(self, n: int) -> None:
+        """Room for `n` rows in all, so that appends up to it copy nothing
+        (an on_disk store rewrites its file at each growth)."""
         if n <= self._data.shape[0]:
             return
         cap = _round_capacity(n)
@@ -134,7 +136,7 @@ class DenseVectorStore:
             )
         vectors = preprocess_vectors(vectors, self.distance)
         n = vectors.shape[0]
-        self._ensure_capacity(self._count + n)
+        self.reserve(self._count + n)
         offsets = np.arange(self._count, self._count + n, dtype=np.int32)
         self._data[self._count : self._count + n] = vectors
         self._count += n
@@ -158,6 +160,15 @@ class DenseVectorStore:
         self._deleted_count += 1
         self._dirty = True
         return True
+
+    def delete_many(self, offsets: np.ndarray) -> None:
+        """`delete` of each of `offsets` (distinct, below the count) at once."""
+        offsets = np.asarray(offsets, dtype=np.int64)
+        fresh = offsets[~self._deleted[offsets]]
+        if len(fresh):
+            self._deleted[fresh] = True
+            self._deleted_count += len(fresh)
+            self._dirty = True
 
     def is_deleted(self, offset: int) -> bool:
         return bool(self._deleted[offset])
@@ -301,7 +312,7 @@ class DenseVectorStore:
         )
         deleted = np.load(os.path.join(path, "deleted.npy"))
         n = data.shape[0]
-        store._ensure_capacity(n)
+        store.reserve(n)
         store._data[:n] = data
         store._deleted[:n] = deleted
         store._count = n
@@ -359,6 +370,10 @@ class DeviceVectorStore(DenseVectorStore):
         if ok:
             self._dev_mask = self._mask_tensor()
         return ok
+
+    def delete_many(self, offsets: np.ndarray) -> None:
+        super().delete_many(offsets)
+        self._dev_mask = self._mask_tensor()
 
     def device_block(self) -> Tuple[torch.Tensor, torch.Tensor]:
         return self._dev, self._dev_mask

@@ -287,6 +287,7 @@ def test_a_seal_records_every_setup_path_whatever_its_rows(tmp_path, monkeypatch
     assert small == large  # spans sit at phases and calls, never per point
     for counts, rows in ((small_counts, 1000), (large_counts, 4000)):
         assert counts["defragment.points"] == rows
+        assert counts["defragment.bulk_rows"] == rows  # the dense seal copies by arrays
         assert counts["flush.bytes"] > rows * 8 * 4  # at least the f32 rows, twice
         assert counts["build.batches"] > 0 and counts["build.insert_rounds"] > 0
     assert large_counts["build.batches"] > small_counts["build.batches"]
