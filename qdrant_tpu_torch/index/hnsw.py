@@ -34,7 +34,8 @@ import torch
 from ..device import default_device, storage_bytes, tensor_bytes
 from ..ops import hnsw as hnsw_ops
 from ..ops.distances import preprocess_vectors
-from ..parallel.mesh import make_mesh, place_rows, shard_slices, sharded_hnsw_search
+from ..parallel.mesh import (make_mesh, place_rows, placing, shard_slices,
+                             sharded_hnsw_search)
 from ..storage.vectors import DenseVectorStore
 from ..types import Distance, HnswConfig
 from ..utils import tracing
@@ -1133,14 +1134,15 @@ class ShardedHnswIndex:
             ids = (np.nonzero(alive_mask[lo:hi])[0] + lo).astype(np.int32)
             if len(ids) == 0:
                 continue  # inert: no rows, or all deleted
-            sub = HnswIndex(self.store, self.config, seed=self.seed + s, subset=ids)
-            sub.build(batch_size=batch_size, ef_construct=ef_construct)
-            ids_dev = torch.from_numpy(ids.astype(np.int64)).to(v.device)
-            lk = sub._links0_device()[sub._rank_device()[ids_dev].long()]
-            links[ids_dev] = torch.where(lk >= 0, lk - lo, -1).to(torch.int32)
-            entries[s] = sub.entry - lo
-            shard_stats.append(sub.build_stats)
-            del sub
+            with tracing.span("mesh.subgraph", shard=s, rows=len(ids), card=str(v.device)):
+                sub = HnswIndex(self.store, self.config, seed=self.seed + s, subset=ids)
+                sub.build(batch_size=batch_size, ef_construct=ef_construct)
+                ids_dev = torch.from_numpy(ids.astype(np.int64)).to(v.device)
+                lk = sub._links0_device()[sub._rank_device()[ids_dev].long()]
+                links[ids_dev] = torch.where(lk >= 0, lk - lo, -1).to(torch.int32)
+                entries[s] = sub.entry - lo
+                shard_stats.append(sub.build_stats)
+                del sub
             if progress_fn:
                 progress_fn(hi, n)
         alive = np.zeros(s_count * np_local, dtype=bool)
@@ -1159,10 +1161,13 @@ class ShardedHnswIndex:
     def _install(self, links: torch.Tensor, entries: np.ndarray, alive: np.ndarray,
                  np_local: int) -> None:
         """Lay a shard-major level-0 table [S*Np, M0] (any device or the
-        host), the entries and the alive rows out on the mesh."""
+        host), the entries and the alive rows out on the mesh (a `mesh.place`
+        span: it returns once every card holds its part)."""
         v, _ = self.store.device_block()
-        self._v = shard_slices(v, self.mesh, np_local)
-        self._links = place_rows(links if self.mesh.one_device else links.cpu(), self.mesh)
+        with placing(self.mesh):
+            self._v = shard_slices(v, self.mesh, np_local)
+            self._links = place_rows(links if self.mesh.one_device else links.cpu(),
+                                     self.mesh)
         self._entries = np.asarray(entries, dtype=np.int32)
         self._alive = np.asarray(alive, dtype=bool)
         self._mask_cache.clear()

@@ -250,7 +250,9 @@ class ScanIndex:
     rows given by the caller (`rows`: the store's device block, cut into
     per-shard views); the JAX mesh index keeps a third, f32 copy of the
     block in its scan layout, which on one card would double the f32 rows.
-    Only a ScanIndex built without `rows` uploads its own."""
+    Only a ScanIndex built without `rows` uploads its own. Laying the index
+    out on a mesh is one `mesh.place` span (parallel/mesh.py::placing): it
+    is built once every card holds its shard."""
 
     def __init__(
         self,
@@ -272,22 +274,26 @@ class ScanIndex:
         shards = self.mesh.size if self.mesh else 1
         self.n_pad = pad_rows(n, block * shards)
         self._vsq_host = np.zeros(self.n_pad, dtype=np.float32)  # to rebuild the bias
-        if self.mesh is None:
-            self._v = self._upload(vectors, 0, self.n_pad, self.device)
-        elif self.mesh.one_device:
-            block_v = self._upload(vectors, 0, self.n_pad, self.device)
-            self._v = pmesh.shard_rows(block_v, self.mesh)
-        else:
-            np_local = self.n_pad // shards
-            self._v = [self._upload(vectors, s * np_local, (s + 1) * np_local, dev)
-                       for s, dev in enumerate(self.mesh.devices)]
         self._rows_src = self._rows = None
         self._own_rows = self.mesh is not None and rows is None
-        if self._own_rows:
-            rows = torch.tensor(np.asarray(vectors), dtype=torch.float32, device=self.device)
-        if self.mesh is not None:
-            self.rescore_rows(rows)
-        self._mask = self.mask_device(valid_mask)
+        if self.mesh is None:
+            self._v = self._upload(vectors, 0, self.n_pad, self.device)
+            self._mask = self.mask_device(valid_mask)
+            return
+        with pmesh.placing(self.mesh):
+            if self.mesh.one_device:
+                block_v = self._upload(vectors, 0, self.n_pad, self.device)
+                self._v = pmesh.shard_rows(block_v, self.mesh)
+            else:
+                np_local = self.n_pad // shards
+                self._v = pmesh.count_placed([
+                    self._upload(vectors, s * np_local, (s + 1) * np_local, dev)
+                    for s, dev in enumerate(self.mesh.devices)])
+            if self._own_rows:
+                rows = torch.tensor(np.asarray(vectors), dtype=torch.float32,
+                                    device=self.device)
+            self._cut_rows(rows)
+            self._mask = self.mask_device(valid_mask)
 
     def _upload(self, vectors: np.ndarray, lo: int, hi: int, device) -> torch.Tensor:
         """Rows lo..hi of the padded bf16 block (zeros past n) on `device`,
@@ -334,9 +340,11 @@ class ScanIndex:
                              f"on each of {mesh.size} shards")
         if rows is None:
             raise ValueError("a mesh ScanIndex needs the f32 rows to rescore")
-        self._v = pmesh.shard_rows(v_bf16, mesh)
-        self._mask = self.mask_device(None) if bias is None else pmesh.shard_rows(bias, mesh)
-        self.rescore_rows(rows)
+        with pmesh.placing(mesh):
+            self._v = pmesh.shard_rows(v_bf16, mesh)
+            self._mask = (self.mask_device(None) if bias is None
+                          else pmesh.shard_rows(bias, mesh))
+            self._cut_rows(rows)
         return self
 
     def rescore_rows(self, rows: Optional[torch.Tensor] = None):
@@ -345,9 +353,13 @@ class ScanIndex:
         until a search passes another rows tensor (a re-uploaded store
         block). None: the rows cut last."""
         if rows is not None and rows is not self._rows_src:
-            self._rows_src = rows
-            self._rows = pmesh.shard_slices(rows, self.mesh, self.n_pad // self.mesh.size)
+            with pmesh.placing(self.mesh):
+                self._cut_rows(rows)
         return self._rows
+
+    def _cut_rows(self, rows: torch.Tensor) -> None:
+        self._rows_src = rows
+        self._rows = pmesh.shard_slices(rows, self.mesh, self.n_pad // self.mesh.size)
 
     def memory_usage_bytes(self):
         """Each distinct storage once: a mesh's per-shard views of one tensor

@@ -19,11 +19,22 @@ the mesh's first device and merges them with one top-k over the shard-major
 concatenation: the layout of JAX's `all_gather`, so equal scores keep JAX's
 order. A mesh may repeat a device (`device.set_logical_devices`): its shards
 then run one after another on that card, with the same launches and merge.
+
+Spans and counters (utils/tracing.py): `mesh.place` around laying a sealed
+segment's tensors out on the mesh (`placing`; it ends once every distinct
+card has synchronised, so a seal returns only when every card holds its
+shard), `mesh.scan` per sharded scan and rescore, `mesh.merge` per merge of
+the shards' candidates on the first device. `mesh.place_bytes` counts the
+bytes placed for shards other than the first, `mesh.peer_bytes` the bytes a
+search sends to them (queries) and takes back from them (candidates): on
+distinct cards the bytes that cross between cards; on a mesh that repeats
+one device the same count, though those tensors stay views.
 """
 
 from __future__ import annotations
 
 import os
+from contextlib import contextmanager
 from dataclasses import dataclass
 from typing import List, Optional, Sequence, Tuple
 
@@ -33,6 +44,7 @@ from ..device import mesh_devices
 from ..ops import hnsw as hnsw_ops
 from ..ops.distances import score_dense
 from ..ops.fused_scan import fused_scan_rescore, scan_grid
+from ..utils import tracing
 
 SHARD_AXIS = "shard"
 MESH_ENV = "QDRANT_TPU_MESH"  # "0" keeps every index on one device
@@ -51,7 +63,12 @@ class Mesh:
     @property
     def one_device(self) -> bool:
         """Every shard lies on one device: sharded tensors are views of one."""
-        return len(set(self.devices)) == 1
+        return self.cards == 1
+
+    @property
+    def cards(self) -> int:
+        """The number of distinct devices."""
+        return len(set(self.devices))
 
 
 def make_mesh(n_devices: Optional[int] = None) -> Mesh:
@@ -65,6 +82,25 @@ def mesh_enabled() -> bool:
     return os.environ.get(MESH_ENV, "1") != "0" and len(mesh_devices()) > 1
 
 
+@contextmanager
+def placing(mesh: Mesh):
+    """Span `mesh.place` around laying tensors out on `mesh`, closed after a
+    synchronise of every distinct card: what it placed is on the cards when
+    it ends."""
+    with tracing.span("mesh.place", shards=mesh.size, cards=mesh.cards):
+        yield
+        for dev in dict.fromkeys(mesh.devices):
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+
+
+def count_placed(parts: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """Add the bytes of every shard's part but the first to
+    `mesh.place_bytes` → `parts`."""
+    tracing.count("mesh.place_bytes", sum(p.numel() * p.element_size() for p in parts[1:]))
+    return list(parts)
+
+
 def shard_rows(t: torch.Tensor, mesh: Mesh) -> List[torch.Tensor]:
     """Cut a row-major tensor shard-major into `mesh.size` equal slices, each
     on its shard's device: a view where that is `t`'s device, a copy
@@ -72,7 +108,8 @@ def shard_rows(t: torch.Tensor, mesh: Mesh) -> List[torch.Tensor]:
     rows, rem = divmod(t.shape[0], mesh.size)
     if rem:
         raise ValueError(f"{t.shape[0]} rows do not split into {mesh.size} shards")
-    return [t[s * rows : (s + 1) * rows].to(dev) for s, dev in enumerate(mesh.devices)]
+    return count_placed([t[s * rows : (s + 1) * rows].to(dev)
+                         for s, dev in enumerate(mesh.devices)])
 
 
 def place_rows(t: torch.Tensor, mesh: Mesh) -> List[torch.Tensor]:
@@ -94,7 +131,14 @@ def shard_slices(t: torch.Tensor, mesh: Mesh, np_local: int) -> List[torch.Tenso
         if piece.shape[0] == 0:
             piece = torch.zeros((1,) + tuple(t.shape[1:]), dtype=t.dtype, device=t.device)
         out.append(piece.to(dev))
-    return out
+    return count_placed(out)
+
+
+def _fan_out(mesh: Mesh, queries: torch.Tensor) -> List[torch.Tensor]:
+    """The replicated query batch on every shard's device; the copies for
+    shards other than the first count in `mesh.peer_bytes`."""
+    tracing.count("mesh.peer_bytes", (mesh.size - 1) * queries.numel() * queries.element_size())
+    return [queries.to(dev) for dev in mesh.devices]
 
 
 def _offset_ids(ids: torch.Tensor, shard: int, np_local: int) -> torch.Tensor:
@@ -107,10 +151,13 @@ def _merge(mesh: Mesh, scores: Sequence[torch.Tensor], gids: Sequence[torch.Tens
     their shard-major concatenation (JAX's all_gather layout; equal scores
     keep the lower position)."""
     dev0 = mesh.devices[0]
-    flat_s = torch.cat([s.to(dev0) for s in scores], dim=1)
-    flat_g = torch.cat([g.to(dev0) for g in gids], dim=1)
-    ms, mi = hnsw_ops.topk_first(flat_s, min(k, flat_s.shape[1]))
-    return ms, flat_g.gather(1, mi)
+    tracing.count("mesh.peer_bytes", sum(t.numel() * t.element_size()
+                                         for t in (*scores[1:], *gids[1:])))
+    with tracing.span("mesh.merge"):
+        flat_s = torch.cat([s.to(dev0) for s in scores], dim=1)
+        flat_g = torch.cat([g.to(dev0) for g in gids], dim=1)
+        ms, mi = hnsw_ops.topk_first(flat_s, min(k, flat_s.shape[1]))
+        return ms, flat_g.gather(1, mi)
 
 
 # ---------------------------------------------------------------------------
@@ -130,8 +177,8 @@ def sharded_exact_search(
     then a merge of the [B, k] candidates → (scores [B, k], global ids
     [B, k]) on the first device."""
     scores, gids = [], []
-    for s, (dev, v, m) in enumerate(zip(mesh.devices, vectors, valid)):
-        local = score_dense(queries.to(dev), v, distance, m)
+    for s, (q, v, m) in enumerate(zip(_fan_out(mesh, queries), vectors, valid)):
+        local = score_dense(q, v, distance, m)
         ls, li = hnsw_ops.topk_first(local, min(k, v.shape[0]))
         scores.append(ls)
         gids.append(li.to(torch.int32) + s * v.shape[0])
@@ -147,9 +194,10 @@ def _beam_loops(mesh, queries, vectors, links, entries, filter_mask, distance, e
                 max_iters):
     """One level-0 beam loop per shard, each seeded at its shard's entry
     (-1: an inert shard whose beam finds nothing)."""
+    if not isinstance(queries, (list, tuple)):
+        queries = _fan_out(mesh, queries)
     loops = []
-    for s, dev in enumerate(mesh.devices):
-        q = queries[s] if isinstance(queries, (list, tuple)) else queries.to(dev)
+    for s, (dev, q) in enumerate(zip(mesh.devices, queries)):
         entry = torch.full((q.shape[0], 1), int(entries[s]), dtype=torch.int32, device=dev)
         fm = None if filter_mask is None else filter_mask[s]
         loops.append(hnsw_ops.level_beam_loop(
@@ -232,14 +280,15 @@ def sharded_scan_rescore(
     → (scores [B, k'], global ids [B, k'], -1 where no finite score), k' =
     min(k, size * min(k, k_fetch)). Euclid scores are -(q-v)^2."""
     k_loc = min(k, k_fetch)
+    np_local = v_bf16[0].shape[0]
+    sblk, slots = scan_grid(np_local, k_fetch, blk)
     scores, gids = [], []
-    for s, dev in enumerate(mesh.devices):
-        np_local = v_bf16[s].shape[0]
-        sblk, slots = scan_grid(np_local, k_fetch, blk)
-        q = queries.to(dev)
-        ls, li = fused_scan_rescore(q, q, v_bf16[s], bias[s], v_f32[s], k_fetch, k_loc,
-                                    blk=sblk, slots=slots, euclid=euclid)
-        scores.append(ls)
-        gids.append(_offset_ids(li, s, np_local))
-    ms, mg = _merge(mesh, scores, gids, k)
-    return ms, torch.where(torch.isfinite(ms), mg, -1)
+    with tracing.span("mesh.scan", shards=mesh.size, cards=mesh.cards,
+                      rows_per_shard=np_local, b=int(queries.shape[0])):
+        for s, q in enumerate(_fan_out(mesh, queries)):
+            ls, li = fused_scan_rescore(q, q, v_bf16[s], bias[s], v_f32[s], k_fetch, k_loc,
+                                        blk=sblk, slots=slots, euclid=euclid)
+            scores.append(ls)
+            gids.append(_offset_ids(li, s, np_local))
+        ms, mg = _merge(mesh, scores, gids, k)
+        return ms, torch.where(torch.isfinite(ms), mg, -1)
