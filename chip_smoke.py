@@ -11,7 +11,8 @@
 Phases, each printing its numbers on its own line:
 
 1. build     compile csrc/fused_scan.cu (the scan kernel in both modes and
-             the merge kernel) with nvcc into build/kernels/, printing
+             the merge kernel) and csrc/hnsw_beam.cu (the graph builder's
+             construction beam) with nvcc into build/kernels/, printing
              ptxas's registers and spills of each kernel (the kernel phase
              prints each launch's shared memory).
 2. kernel    the fused scan (scan kernel, then the merge of its split walk)
@@ -77,7 +78,16 @@ Phases, each printing its numbers on its own line:
              over the 1536-d rows (`beam_search_level`: the inline table would
              not fit). Then the graph programs on `cuda` against the same
              functions on `cpu` over a 20,000-row slice, and the device time
-             and launches of one beam turn and one insert round.
+             and launches of one beam turn and one insert round. Last, at
+             each main path's size (1M x 128 euclid, 262,144 x 1536 cosine,
+             graphs built on the card, bf16 codes): one insert round of the
+             builder's top batch (B = 4,096; device ms, ops, transient
+             memory) and its construction beam, the kernel
+             (csrc/hnsw_beam.cu: `ms`, `graph_ms`, its bound, the code rows
+             it read) against `_beam_construct_plain` on the same state
+             (`plain_ms`): at least 99.99% of the beams' live ids shared,
+             and the score of every shared id within the order of an f32
+             sum of the plain one (~3 min).
    mesh      the device mesh (parallel/mesh.py) on MESH_SHARDS = 4 logical
              shards of the card (device.set_logical_devices, the counterpart
              of XLA's forced host device count, on which the JAX package ran
@@ -225,7 +235,10 @@ traces only with --profile.
 Before the last line it prints the kernel table as JSON: each row's numbers
 are those at the rest (bf16, merge) or sq (int8) launch, `launches` sums the
 main-path phases, and `by_phase` gives each phase's own launches beside the
-kernel's numbers at that phase's launch shape. The last line is
+kernel's numbers at that phase's launch shape. The beam kernel's row
+(`hnsw_beam_construct`) has the graph phase's numbers at 1M x 128
+(`at_d1536` beside them) and counts the launches of the main-path phases'
+own graph builds, one an insert round on the card. The last line is
 {"ok": true, "device": {...}}. Any failed check raises (including jax or
 the qdrant_tpu package having been imported), so the script exits non-zero
 and prints no result; it refuses to run without CUDA.
@@ -1424,7 +1437,135 @@ def run_graph_vs_cpu(rng, n=20_000, d=128, b=64, ef=64):
     out["insert_round_b4096_bf16"] = {
         "device_ms": busy, "device_ops": n_ops, "wall_ms": (time.perf_counter() - t0) * 1e3,
         "beam_turns": 21}
+    del index, store, vectors, bf16, nrm, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the same round and its beam at each main path's size
+    for name, rows, dim in (("sift1m", 1_000_000, 128), ("dbpedia", 262_144, 1536)):
+        out[f"insert_round_b4096_bf16_d{dim}"] = _main_size_round(rng, name, rows, dim)
     return out
+
+
+def _beam_agreement(got, plain, q, codes, scale_sq):
+    """The beam kernel's (scores, ids) against the plain version's on the
+    same state: the share of live ids both beams hold, and for each shared
+    id the score gap over its tolerance, 2^-20 of scale_sq x the sum of
+    |products| (the order of an f32 sum) plus 2 ulp of the plain score.
+    → (shared share, ids-equal share of queries, largest gap over tol)."""
+    import torch
+
+    got_s, got_i = got
+    plain_s, plain_i = plain
+    p_sorted, order = plain_i.sort(dim=1)
+    pos = torch.searchsorted(p_sorted, got_i.contiguous()).clamp(max=plain_i.shape[1] - 1)
+    hit = (p_sorted.gather(1, pos) == got_i) & (got_i >= 0)
+    at = plain_s.gather(1, order.gather(1, pos))
+    mag = torch.empty_like(got_s)
+    for c in range(0, got_i.shape[0], 256):  # [256, ef, D] f32 at a time
+        rows = codes[got_i[c:c + 256].clamp(min=0).long()].float().abs()
+        mag[c:c + 256] = torch.einsum("bd,bkd->bk", q[c:c + 256].float().abs(), rows)
+    ulp = torch.nextafter(at.abs(), torch.full_like(at, float("inf"))) - at.abs()
+    tol = 2.0 ** -20 * scale_sq * mag + 2 * ulp
+    over = ((got_s - at).abs() / tol)[hit]
+    live = max(int((got_i >= 0).sum()), int((plain_i >= 0).sum()))
+    return (int(hit.sum()) / live, float((got_i == plain_i).all(dim=1).float().mean()),
+            float(over.max()) if over.numel() else 0.0)
+
+
+def _main_size_round(rng, name, n, d):
+    """One insert round of the builder's top batch (B = 4,096, ef 128, 21
+    turns, expand 8, m0 40, bf16 codes) at a main path's size: a graph built
+    on the card over n x d rows (euclid at d = 128, unit-norm cosine
+    otherwise), then the round re-inserts 4,096 of its points (refine
+    mode). The round's device ms, ops and peak memory over what was
+    allocated before it; its beam alone, the kernel (`ms` launched from
+    Python, `graph_ms` replayed) against `_beam_construct_plain` on the same
+    state, and the kernel's bound, the code rows it read → dict."""
+    import torch
+
+    from qdrant_tpu_torch.index.hnsw import HnswIndex
+    from qdrant_tpu_torch.ops import hnsw_build as hb
+    from qdrant_tpu_torch.storage.vectors import DenseVectorStore
+    from qdrant_tpu_torch.types import Distance, HnswConfig
+    from qdrant_tpu_torch.utils import tracing
+
+    euclid = d == 128
+    x, _ = _clustered(rng, n, d, 1)
+    if not euclid:  # unit-norm rows, as the dbpedia embeddings
+        x -= x.mean(axis=1, keepdims=True)
+        x /= np.linalg.norm(x, axis=1, keepdims=True)
+    store = DenseVectorStore(d, Distance.EUCLID if euclid else Distance.COSINE)
+    store.add(x)
+    del x
+    index = HnswIndex(store, HnswConfig())
+    before, launches = tracing.counters(), hb.beam_construct_kernel.launches
+    index.build()
+    after = tracing.counters()
+    check(index.build_stats["device_build"], f"{name}: not built on the device")
+    res = {"points": n, "dim": d, "build_s": index.build_stats["seconds"],
+           "build_rounds": after["build.insert_rounds"] - before.get("build.insert_rounds", 0),
+           "build_beam_kernel": after.get("build.beam_kernel", 0)
+           - before.get("build.beam_kernel", 0),
+           "build_launches": hb.beam_construct_kernel.launches - launches}
+    check(res["build_rounds"] > 0 and res["build_beam_kernel"] == res["build_rounds"]
+          == res["build_launches"],
+          f"{name}: {res['build_beam_kernel']} of {res['build_rounds']} insert rounds "
+          "ran the beam kernel")
+    vectors = store.device_block()[0]
+    links, rank = index._links0_device(), index._rank_device()
+    m0 = index.config.m0
+    owner = np.full(links.shape[0], -1, np.int32)
+    owner[index.rank[index.rank >= 0]] = np.flatnonzero(index.rank >= 0)
+    bf16 = vectors.to(torch.bfloat16)
+    nrm = (vectors.float() ** 2).sum(1)
+    scale_sq = 2.0 if euclid else 1.0
+    big = torch.from_numpy(rng.choice(n, size=4096, replace=False).astype(np.int32)).cuda()
+    ow = torch.from_numpy(owner).cuda()
+    ent = torch.full((4096,), index.entry, dtype=torch.int32, device="cuda")
+    state = (links.clone(), (links >= 0).sum(1).to(torch.int32))
+    qc = bf16[big.long()]
+    beam_args = (qc, bf16, nrm, state[0], rank, ent, scale_sq, euclid, 128, 21, 8)
+
+    def insert_round():
+        hb.insert_batch_level0(*state, big, qc, bf16, nrm, rank, ow, ent, scale_sq,
+                               ef=128, iters=21, expand=8, m0=m0, inc_cap=16,
+                               ov_cap=4096, euclid=euclid, sel_c=128, merge_forward=True)
+
+    busy, n_ops = _device_ms_and_ops(insert_round)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    insert_round()
+    torch.cuda.synchronize()
+    res["round"] = {"device_ms": busy, "device_ops": n_ops,
+                    "transient_gib": (torch.cuda.max_memory_allocated() - base) / 2**30}
+    rows = torch.zeros(1, dtype=torch.int64, device="cuda")
+    got = hb.beam_construct_kernel(*beam_args, rows_scored=rows)
+    plain = hb._beam_construct_plain(*beam_args)
+    shared, equal, over = _beam_agreement(got, plain, qc, bf16, scale_sq)
+    rows_read = int(rows.item())
+    # code rows and their norms, and at most a link row and a rank entry a pick
+    moved = rows_read * (d * 2 + 4) + 4096 * 21 * 8 * (m0 * 4 + 4)
+    beam = {
+        "ms": _time_ms(lambda: hb.beam_construct_kernel(*beam_args), 3),
+        "graph_ms": _graph_ms(lambda: hb.beam_construct_kernel(*beam_args), 1, reps=3),
+        "plain_ms": _time_ms(lambda: hb._beam_construct_plain(*beam_args), 2),
+        "rows_read": rows_read, "rows_most": 4096 * 21 * 8 * m0,
+        "bound_ms": moved / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        "shared_ids": shared, "ids_equal_share": equal, "score_err_over_tol": over,
+    }
+    beam["bound_share"] = beam["bound_ms"] / beam["graph_ms"]
+    beam["share_of_round"] = beam["graph_ms"] / busy
+    res["beam"] = beam
+    # bf16 sums in another order break near ties, and a broken tie turns the
+    # rest of that query's walk: the beams are compared as sets of ids
+    check(shared >= 0.9999,
+          f"{name}: the kernel's beams share {shared:.6f} of their ids with the plain ones")
+    check(over <= 1.0, f"{name}: a shared id's score is {over:.3f} x its tolerance off")
+    del index, store, vectors, links, rank, bf16, nrm, state, qc, beam_args, got, plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
 
 
 def run_filtered(rng, storage, fs, n=100_000, d=100, n_queries=64, threads=8):
@@ -2911,6 +3052,7 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     try:
         from qdrant_tpu_torch.ops import fused_scan as fs
+        from qdrant_tpu_torch.ops import hnsw_build as hb
     except ImportError as exc:
         print(f"chip_smoke: the qdrant_tpu_torch package is missing ({exc}); "
               "run from the repository root", file=sys.stderr)
@@ -2927,8 +3069,15 @@ def main() -> int:
           f"device {torch.cuda.get_device_name(0)}", flush=True)
     t_start = time.perf_counter()
 
+    # the beam kernel's launches in each phase, booked at its lap
+    beam_launched, beam_seen = {}, [hb.beam_construct_kernel.launches]
+
     def lap(phase):
         print(f"elapsed after {phase}: {time.perf_counter() - t_start:.1f} s", flush=True)
+        count = hb.beam_construct_kernel.launches - beam_seen[0]
+        beam_seen[0] += count
+        if count:
+            beam_launched[phase] = count
 
     rng = np.random.default_rng(args.seed)
     gen = torch.Generator(device="cuda")
@@ -2950,6 +3099,12 @@ def main() -> int:
             ("merge", "merge_survivors", 103),
         )
     }
+    rows["beam"] = {
+        "name": "hnsw_beam_construct", "route": "cuda",
+        "source": "qdrant_tpu_torch/csrc/hnsw_beam.cu",
+        # no Pallas kernel: the JAX _beam_construct is an XLA program
+        "replaces": None, "library_ms": None, "launches": 0,
+    }
     # `ms` is the call launched from Python (the yardstick of earlier runs);
     # `graph_ms` the same in a replayed CUDA graph, `scan_ms` the scan alone
     row_keys = ("ms", "graph_ms", "scan_ms", "plain_ms", "bound_ms", "bound_by",
@@ -2959,13 +3114,15 @@ def main() -> int:
     at_launch, launched = {}, {}
 
     if "build" in phases or "kernel" in phases or "sweep" in phases:
-        t0 = time.perf_counter()
-        so, log = fs.build_library(verbose=True)
-        fs._lib()
-        print(f"build: {time.perf_counter() - t0:.2f} s -> {os.path.relpath(so, ROOT)} ({card})")
-        for line in log.splitlines():
-            if any(w in line for w in ("Compiling entry", "registers", "spill")):
-                print(f"build: ptxas {line.strip()}")
+        for source, load in ((fs.SOURCE, fs._lib), (hb.BEAM_SOURCE, hb._beam_lib)):
+            t0 = time.perf_counter()
+            so, log = fs.build_library(verbose=True, source=source)
+            load()
+            print(f"build: {time.perf_counter() - t0:.2f} s -> {os.path.relpath(so, ROOT)} "
+                  f"({card})")
+            for line in log.splitlines():
+                if any(w in line for w in ("Compiling entry", "registers", "spill")):
+                    print(f"build: ptxas {line.strip()}")
     if "kernel" in phases:
         # the shapes the main-path phases launch: batches of a few requests
         # padded to 8 rows (the grid is blk 4096 x 16 slots for every limit up
@@ -3060,6 +3217,12 @@ def main() -> int:
         res = run_graph_vs_cpu(rng)
         print(f"graph cuda vs cpu: {json.dumps(res)} ({card})", flush=True)
         lap("graph vs cpu")
+        main_size = res["insert_round_b4096_bf16_d128"]["beam"]
+        rows["beam"].update({k: main_size[k] for k in (
+            "ms", "graph_ms", "plain_ms", "bound_ms", "bound_by", "bound_share")},
+            shape="B 4096 x 1M x 128 bf16, ef 128, 21 turns, expand 8, m0 40",
+            at_d1536={k: res["insert_round_b4096_bf16_d1536"]["beam"][k] for k in (
+                "ms", "graph_ms", "plain_ms", "bound_ms", "bound_share")})
     if "mesh" in phases:
         if data is None:  # the rest phase did not run: the same rows from the seed
             x, q = _clustered(rng, args.graph_rows, 128, 64)
@@ -3154,6 +3317,13 @@ def main() -> int:
                 "launches": count, "shape": res.get("shape"),
                 **{k: src[k] for k in ("ms", "graph_ms", "plain_ms", "bound_ms", "bound_by",
                                        "max_abs_err") if k in src}}
+    # the beam kernel: one launch an insert round of the main-path phases' own
+    # graph builds (the graph phase's comparisons and probes are not booked)
+    for phase, count in beam_launched.items():
+        if phase != "graph vs cpu":
+            rows["beam"]["launches"] += count
+            rows["beam"].setdefault("by_phase", {})[phase] = {"launches": count}
+    rows["beam"]["check_launches"] = beam_launched.get("graph vs cpu", 0)
     if multi_launches is not None:  # checked 0: max-sim and the graph take no kernel
         for key, count in zip(("bf16", "int8", "merge"), multi_launches):
             rows[key]["launches"] += count

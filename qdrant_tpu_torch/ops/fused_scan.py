@@ -81,22 +81,24 @@ def _nvcc() -> str:
     ):
         if cand and os.path.exists(cand):
             return cand
-    raise RuntimeError("nvcc not found: the fused scan kernel cannot be built")
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def build_library(verbose: bool = False) -> Tuple[str, str]:
-    """Compile csrc/fused_scan.cu into build/kernels (keyed by the source's
-    hash, so an edited source rebuilds) → (path of the shared library,
-    compiler output; empty when the library was already built)."""
-    with open(SOURCE, "rb") as f:
+def build_library(verbose: bool = False, source: str = SOURCE) -> Tuple[str, str]:
+    """Compile a CUDA source of csrc/ (by default csrc/fused_scan.cu) into
+    build/kernels (keyed by the source's hash, so an edited source rebuilds)
+    → (path of the shared library, compiler output; empty when the library
+    was already built)."""
+    with open(source, "rb") as f:
         digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    so_path = os.path.join(BUILD_DIR, f"libfused_scan_{digest}.so")
+    name = os.path.splitext(os.path.basename(source))[0]
+    so_path = os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
     if os.path.exists(so_path):
         return so_path, ""
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{so_path}.{os.getpid()}.tmp"
     cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", tmp, SOURCE]
+           "-o", tmp, source]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(

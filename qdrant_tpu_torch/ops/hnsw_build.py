@@ -16,10 +16,20 @@ The adjacency and counts stay on the device across batches and are updated
 IN PLACE (the JAX program donates them); the functions return the same
 tensors. The adjacency MUST have at least one spare padding row at the end
 (row R-1): it absorbs masked-out scatter writes and is wiped afterwards.
+
+On the card the construction beam (1) is one hand-written kernel,
+`csrc/hnsw_beam.cu`, for every shape the builder gives it: it reads the code
+rows where they lie, with no [B, expand * width, D] gather. Its torch body,
+`_beam_construct_plain`, is the CPU path and the version the tests hold the
+kernel to. The rounds whose beam ran in the kernel are counted
+as `build.beam_kernel` beside `build.insert_rounds` (utils/tracing.py).
 """
 
 from __future__ import annotations
 
+import ctypes
+import os
+import threading
 from typing import Optional, Tuple
 
 import numpy as np
@@ -38,10 +48,17 @@ from .hnsw import (
     take_rows,
     topk_first,
 )
+from .fused_scan import build_library
 from .hnsw_inline import code_products, int8_dots
 
 # bytes of the reverse pass's [K, m0, D] code gather held at once
 REVERSE_GATHER_BUDGET = 1.5e9
+
+BEAM_SOURCE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                           "csrc", "hnsw_beam.cu")
+
+_BEAM_LIB: Optional[ctypes.CDLL] = None
+_BEAM_LOCK = threading.Lock()
 
 
 def _score_codes(q_i8, codes, norms, ids, scale_sq, euclid):
@@ -56,8 +73,86 @@ def _score_codes(q_i8, codes, norms, ids, scale_sq, euclid):
     return torch.where(ids >= 0, s, NEG_INF)
 
 
+def _beam_lib() -> ctypes.CDLL:
+    global _BEAM_LIB
+    with _BEAM_LOCK:
+        if _BEAM_LIB is None:
+            lib = ctypes.CDLL(build_library(source=BEAM_SOURCE)[0])
+            ptr, i32 = ctypes.c_void_p, ctypes.c_int
+            lib.hnsw_beam_construct.argtypes = (
+                [ptr] * 6 + [ctypes.c_float] + [i32] * 9 + [ptr] * 4)
+            lib.hnsw_beam_construct.restype = i32
+            _BEAM_LIB = lib
+        return _BEAM_LIB
+
+
+def beam_construct_kernel(q_i8, codes, norms, links, rank, entries, scale_sq,
+                          euclid, ef, iters, expand,
+                          rows_scored: Optional[torch.Tensor] = None):
+    """`_beam_construct` in one launch of csrc/hnsw_beam.cu → (beam_scores
+    [B, ef] f32, beam_ids [B, ef] int32), on the current stream, with no
+    synchronise. It takes CUDA bf16 or int8 codes of any width D, and any
+    link width, ef and expand whose working set fits a CTA's shared memory;
+    it raises on anything else. `rows_scored` (int64 [1], optional) gains
+    the code rows the kernel read."""
+    b, d = q_i8.shape
+    if codes.dtype not in (torch.bfloat16, torch.int8):
+        raise ValueError(f"the beam kernel takes bf16 or int8 codes, not {codes.dtype}")
+    if codes.dim() != 2 or codes.shape[1] != d or q_i8.dtype != codes.dtype:
+        raise ValueError(f"codes [N, {d}] of the queries' type expected")
+    if ef < 1 or expand < 1 or iters < 0:
+        raise ValueError(f"ef {ef}, expand {expand}, iters {iters}")
+    for name, t, dtype in (("links", links, torch.int32), ("rank", rank, torch.int32),
+                           ("norms", norms, torch.float32)):
+        if t.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if codes.device.type != "cuda":
+        raise ValueError("the beam kernel runs on CUDA tensors only")
+    dev = codes.device
+    q = q_i8.contiguous()
+    codes, norms, links, rank = (t.contiguous() for t in (codes, norms, links, rank))
+    ent = entries.to(torch.int32).contiguous()
+    out_s = torch.empty((b, ef), dtype=torch.float32, device=dev)
+    out_i = torch.empty((b, ef), dtype=torch.int32, device=dev)
+    if rows_scored is not None and (rows_scored.dtype != torch.int64
+                                    or rows_scored.device != dev):
+        raise TypeError("rows_scored must be an int64 tensor on the codes' device")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _beam_lib().hnsw_beam_construct(
+            q.data_ptr(), codes.data_ptr(), norms.data_ptr(), links.data_ptr(),
+            rank.data_ptr(), ent.data_ptr(), float(np.float32(scale_sq)), int(euclid),
+            int(codes.dtype == torch.int8), b, d, links.shape[1], links.shape[0], ef,
+            iters, expand, out_s.data_ptr(), out_i.data_ptr(),
+            None if rows_scored is None else rows_scored.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(
+            f"hnsw_beam_construct launch failed: CUDA error {err} (D {d} {codes.dtype}, "
+            f"width {links.shape[1]}, ef {ef}, expand {expand}; cudaErrorInvalidValue = 1 "
+            "where a CTA's working set exceeds the card's shared memory)")
+    beam_construct_kernel.launches += 1
+    return out_s, out_i
+
+
+beam_construct_kernel.launches = 0
+
+
 def _beam_construct(q_i8, codes, norms, links, rank, entries, scale_sq,
                     euclid, ef, iters, expand, check_every: Optional[int] = None):
+    """Construction beam → (beam_scores [B, ef], beam_ids [B, ef]): the
+    kernel on the card (counted as `build.beam_kernel`), the plain version
+    on the CPU."""
+    if codes.device.type == "cuda":
+        out = beam_construct_kernel(q_i8, codes, norms, links, rank, entries, scale_sq,
+                                    euclid, ef, iters, expand)
+        tracing.count("build.beam_kernel")
+        return out
+    return _beam_construct_plain(q_i8, codes, norms, links, rank, entries, scale_sq,
+                                 euclid, ef, iters, expand, check_every)
+
+
+def _beam_construct_plain(q_i8, codes, norms, links, rank, entries, scale_sq,
+                          euclid, ef, iters, expand, check_every: Optional[int] = None):
     """Construction beam at level 0 — code scoring, beam-only dedup +
     intra-expansion dedup (same structure as ops/hnsw_inline.py). By default
     all `iters` turns run with no read of the stop flag: a build batch almost

@@ -190,7 +190,8 @@ def test_remote_shard_takes_the_scan_branch(tmp_path):
                           "optimizers_config": {"indexing_threshold": 10**9}})
         coll2 = c.tocs[1].get_collection("scan")
         assert wait_for(lambda: coll2.placement == {0: [1], 1: [2]})
-        assert 1 in c.tocs[0].get_collection("scan").remote_shards
+        # each peer applies the placement from the consensus log on its own
+        assert wait_for(lambda: 1 in c.tocs[0].get_collection("scan").remote_shards)
         ids = [i for i in range(160_000) if coll2._route_sid(i) == 1][:70_000]
         assert len(ids) == 70_000 >= SCAN_THRESHOLD
         rng = np.random.default_rng(3)

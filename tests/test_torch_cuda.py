@@ -10,6 +10,10 @@ products in f32 in another order; ids equal wherever the winner beats the
 runner-up by more. int8 mode: bit for bit (the integer dot is exact in
 both, and both round the scale and the bias add separately).
 
+The graph builder's beam kernel (csrc/hnsw_beam.cu) is held to its plain
+version on the same state: int8 bit for bit, bf16 within the order of an f32
+sum, and a whole build's recall to the plain beam's.
+
 The tier's torch scans, the sparse programs, the graph programs (beams and
 one insert round) and the multivector max-sim are held on `cuda` against the
 same functions on `cpu`.
@@ -538,3 +542,151 @@ def test_sharded_scan_rescore_four_logical_shards_on_card(cuda):
     np.testing.assert_array_equal(four_i[same], one_i[same])
     assert np.array_equal(four_s[same].view(np.int32), one_s[same].view(np.int32))
     assert not dead[four_i[four_i >= 0]].any()
+
+
+def _beam_state(dev, rng, n, d, width, b, dtype, euclid):
+    """A graph of `width` nearest links with holes, a spare row, a few
+    points with no row, and queries: the code rows of b - 8 points and 8
+    zero rows (padded lanes), one entry -1 → the beam's inputs on `dev`."""
+    if dtype == torch.int8:
+        x, links, codes, norms, scale = _knn_graph(rng, n, d, width)
+        codes_t = torch.from_numpy(codes)
+        scale_sq = float(np.float32((2.0 if euclid else 1.0) * scale * scale))
+    else:
+        x = rng.standard_normal((n, d)).astype(np.float32)
+        n2 = (x * x).sum(1)
+        links = np.argsort(n2[:, None] - 2 * (x @ x.T), axis=1)[:, 1 : width + 1]
+        links = links.astype(np.int32)
+        codes_t = torch.from_numpy(x).to(torch.bfloat16)
+        norms = (codes_t.float() ** 2).sum(1).numpy()
+        scale_sq = 2.0 if euclid else 1.0
+    links = np.where(rng.random(links.shape) < 0.1, -1, links).astype(np.int32)
+    links = np.vstack([links, np.full((1, width), -1, np.int32)])
+    rank = np.arange(n, dtype=np.int32)
+    rank[rng.choice(n, size=n // 50, replace=False)] = -1
+    q = codes_t[torch.from_numpy(rng.integers(0, n, b))].clone()
+    q[b - 8 :] = 0
+    entries = rng.integers(0, n, b).astype(np.int32)
+    entries[-1] = -1
+    on = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+          for a in (norms.astype(np.float32), links, rank, entries)]
+    return (q.to(dev), codes_t.to(dev), *on, scale_sq, euclid)
+
+
+@pytest.mark.parametrize(
+    "d,width,ef,expand,euclid",
+    [
+        (128, 16, 48, 4, True),
+        (128, 20, 128, 8, False),
+        (128, 40, 256, 8, True),
+        (128, 64, 512, 16, False),
+        (1536, 40, 128, 8, False),
+        (1536, 20, 48, 4, True),
+        (1536, 16, 256, 8, False),
+        (100, 40, 128, 8, True),  # rows read in 4-byte words
+        (99, 16, 48, 4, False),  # rows read a byte at a time
+        (128, 128, 128, 8, True),  # m 64: m0 128
+        (128, 40, 600, 8, False),  # ef_construct past 512
+        (128, 20, 128, 17, True),
+    ],
+)
+def test_beam_kernel_int8_bit_exact(cuda, d, width, ef, expand, euclid):
+    """The construction beam kernel against its plain version on the same
+    int8 state: ids and scores bit for bit (integer dots, each float step
+    rounded alone), and `_beam_construct` takes the kernel on the card."""
+    from qdrant_tpu_torch.ops import hnsw_build as hb
+    from qdrant_tpu_torch.utils import tracing
+
+    rng = np.random.default_rng(31)
+    args = _beam_state(cuda, rng, 3000, d, width, 72, torch.int8, euclid)
+    iters = max((int(ef * 1.2) + 16) // expand, 8)
+    plain_s, plain_i = hb._beam_construct_plain(*args, ef, iters, expand)
+    launches, rounds = hb.beam_construct_kernel.launches, tracing.counters().get(
+        "build.beam_kernel", 0)
+    got_s, got_i = hb._beam_construct(*args, ef, iters, expand)
+    assert hb.beam_construct_kernel.launches == launches + 1
+    assert tracing.counters()["build.beam_kernel"] == rounds + 1
+    got_i, plain_i = got_i.cpu().numpy(), plain_i.cpu().numpy()
+    np.testing.assert_array_equal(got_i, plain_i)
+    np.testing.assert_array_equal(got_s.cpu().numpy(), plain_s.cpu().numpy())
+    assert (got_i[:, 0] >= 0).sum() == 71 and (got_i[-1] == -1).all()
+
+
+def test_beam_kernel_refuses_a_shape_past_shared_memory(cuda):
+    """A CTA's working set that the card's shared memory cannot hold (one
+    bf16 row of 256 KB) is refused with an error, not run on another path, and
+    the card stays usable."""
+    from qdrant_tpu_torch.ops import hnsw_build as hb
+
+    rng = np.random.default_rng(34)
+    args = _beam_state(cuda, rng, 64, 131_072, 16, 16, torch.bfloat16, False)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        hb._beam_construct(*args, 48, 10, 8)
+    # the refusal is not left behind for the next launch to report
+    assert int((torch.arange(4, device=cuda) * 2).sum()) == 12
+
+
+@pytest.mark.parametrize("d,euclid", [(128, True), (1536, False), (100, True), (99, False)])
+def test_beam_kernel_bf16_within_sum_order(cuda, d, euclid):
+    """bf16 codes: the kernel sums the f32 products in another order than the
+    plain version's product. Scores of the same id within 2^-20 of the row's
+    sum of |products| (times scale_sq, plus 2 ulp of the score): on rows of
+    normal values the order moves a sum by ~2^-24 of it. The ids equal in at
+    least 95% of the queries: elsewhere a near tie may turn the walk."""
+    from qdrant_tpu_torch.ops import hnsw_build as hb
+
+    rng = np.random.default_rng(32)
+    args = _beam_state(cuda, rng, 3000, d, 40, 64, torch.bfloat16, euclid)
+    q, codes, scale_sq = args[0], args[1], args[6]
+    plain_s, plain_i = hb._beam_construct_plain(*args, 128, 21, 8)
+    got_s, got_i = hb.beam_construct_kernel(*args, 128, 21, 8)
+    plain_s, plain_i, got_s, got_i = (t.cpu().numpy() for t in (plain_s, plain_i, got_s, got_i))
+    assert (got_i == plain_i).all(1).mean() >= 0.95
+    same = (got_i == plain_i) & (got_i >= 0)
+    rows, cols = np.nonzero(same)
+    qf = q.float().cpu().numpy().astype(np.float64)
+    vf = codes.float().cpu().numpy().astype(np.float64)[got_i[rows, cols]]
+    tol = (2.0 ** -20 * scale_sq * np.abs(qf[rows] * vf).sum(1)
+           + 2 * np.spacing(np.abs(plain_s[rows, cols])))
+    assert (np.abs(got_s[rows, cols] - plain_s[rows, cols]) <= tol).all()
+    np.testing.assert_array_equal(got_s[~same & (got_i < 0)], -np.inf)
+
+
+def test_build_with_beam_kernel_recall_equals_plain(cuda, monkeypatch):
+    """A whole 20,000-point build on the card, once with the beam kernel and
+    once with the plain beam: every round takes the kernel in the first, and
+    recall@10 at ef 128 of the two graphs is within 0.005 (1,000 queries)."""
+    from qdrant_tpu_torch.index.hnsw import HnswIndex
+    from qdrant_tpu_torch.ops import hnsw_build as hb
+    from qdrant_tpu_torch.storage.vectors import DenseVectorStore
+    from qdrant_tpu_torch.types import Distance, HnswConfig
+    from qdrant_tpu_torch.utils import tracing
+
+    rng = np.random.default_rng(33)
+    centers = rng.uniform(0, 200, size=(256, 128)).astype(np.float32)
+    x = np.clip(centers[rng.integers(0, 256, 20_000)]
+                + 20 * rng.standard_normal((20_000, 128)).astype(np.float32), 0, 255)
+    q = np.clip(centers[rng.integers(0, 256, 1000)]
+                + 20 * rng.standard_normal((1000, 128)).astype(np.float32), 0, 255)
+    xd, qd = torch.from_numpy(x).to(cuda), torch.from_numpy(q).to(cuda)
+    d2 = (qd * qd).sum(1, keepdim=True) - 2 * qd @ xd.T + (xd * xd).sum(1)[None]
+    truth = torch.topk(-d2, 10, dim=1).indices.cpu().numpy()
+
+    def recall(kernel):
+        if not kernel:
+            monkeypatch.setattr(hb, "_beam_construct", hb._beam_construct_plain)
+        before = dict(tracing.counters())
+        store = DenseVectorStore(128, Distance.EUCLID)
+        store.add(x)
+        index = HnswIndex(store, HnswConfig())
+        index.build()
+        assert index.build_stats["device_build"]
+        after = tracing.counters()
+        rounds = after["build.insert_rounds"] - before.get("build.insert_rounds", 0)
+        in_kernel = after.get("build.beam_kernel", 0) - before.get("build.beam_kernel", 0)
+        assert rounds > 0 and in_kernel == (rounds if kernel else 0)
+        _, ids = index.search(q, 10, ef=128)
+        return float(np.mean([len(set(a) & set(b)) / 10 for a, b in zip(ids, truth)]))
+
+    with_kernel, plain = recall(True), recall(False)
+    assert with_kernel >= 0.9 and abs(with_kernel - plain) <= 0.005, (with_kernel, plain)

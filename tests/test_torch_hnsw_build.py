@@ -263,3 +263,119 @@ def test_seed_graph_equal(monkeypatch):
     np.testing.assert_array_equal(idx.links0, jidx.links0)
     np.testing.assert_array_equal(idx.links_upper, jidx.links_upper)
     np.testing.assert_array_equal(idx.counts0, jidx.counts0)
+
+
+def _beam_inputs(dtype, d, width, b=8, n=400, seed=0):
+    """A beam's inputs on the CPU: random codes, `width` random links a row
+    with holes and a spare row, every point ranked, random entries."""
+    rng = np.random.default_rng(seed)
+    if dtype == torch.int8:
+        codes = t(rng.integers(-127, 128, (n, d)).astype(np.int8))
+        scale_sq = 0.02
+    else:
+        codes = t(rng.standard_normal((n, d)).astype(np.float32)).to(dtype)
+        scale_sq = 2.0
+    norms = (codes.float() ** 2).sum(1) * scale_sq / 2
+    links = rng.integers(0, n, (n + 1, width)).astype(np.int32)
+    links[rng.random(links.shape) < 0.1] = -1
+    links[-1] = -1
+    q = codes[t(rng.integers(0, n, b)).long()].clone()
+    entries = t(rng.integers(0, n, b).astype(np.int32))
+    return q, codes, norms, t(links), t(np.arange(n, dtype=np.int32)), entries, scale_sq
+
+
+@pytest.mark.parametrize(
+    "dtype,d,width,ef,expand",
+    [
+        (torch.bfloat16, 1536, 40, 128, 8),  # dbpedia's level 0
+        (torch.int8, 128, 20, 128, 8),  # an upper level
+        (torch.bfloat16, 100, 40, 128, 8),  # glove-100
+        (torch.int8, 99, 16, 48, 4),  # rows of an odd byte count
+        (torch.bfloat16, 7, 3, 16, 2),
+        (torch.bfloat16, 128, 128, 128, 8),  # m 64: m0 128
+        (torch.bfloat16, 128, 40, 600, 8),  # ef_construct past 512
+        (torch.int8, 128, 40, 128, 17),
+        (torch.int8, 1536, 64, 256, 16),
+        (torch.bfloat16, 16, 8, 48, 4),
+        (torch.int8, 16, 16, 48, 8),
+    ],
+)
+def test_cpu_beam_is_the_plain_version(monkeypatch, dtype, d, width, ef, expand):
+    """On the CPU the construction beam is `_beam_construct_plain` at every
+    shape, those the kernel runs on the card included: the kernel is never
+    called and `build.beam_kernel` does not move."""
+    from qdrant_tpu_torch.utils import tracing
+
+    def no_kernel(*a, **k):
+        raise AssertionError("the beam kernel ran on the CPU")
+
+    args = _beam_inputs(dtype, d, width)
+    want_s, want_i = build_ops._beam_construct_plain(*args, True, ef, 10, expand)
+    monkeypatch.setattr(build_ops, "beam_construct_kernel", no_kernel)
+    before = tracing.counters().get("build.beam_kernel", 0)
+    got_s, got_i = build_ops._beam_construct(*args, True, ef, 10, expand)
+    assert tracing.counters().get("build.beam_kernel", 0) == before
+    np.testing.assert_array_equal(got_i.numpy(), want_i.numpy())
+    np.testing.assert_array_equal(got_s.numpy(), want_s.numpy())
+    assert (got_i[:, 0] >= 0).all()
+
+
+def _refuse(name):
+    """The beam kernel's inputs with one fault, on the CPU."""
+    q, codes, norms, links, rank, entries, scale_sq = _beam_inputs(torch.int8, 16, 16)
+    kw = dict(ef=48, iters=10, expand=8)
+    if name == "f32_codes":
+        q, codes = q.float(), codes.float()
+    elif name == "query_type":
+        q = q.to(torch.bfloat16)
+    elif name == "query_width":
+        q = q[:, :8]
+    elif name == "int64_links":
+        links = links.long()
+    elif name == "no_ef":
+        kw["ef"] = 0
+    elif name == "no_expand":
+        kw["expand"] = 0
+    return (q, codes, norms, links, rank, entries, scale_sq, True), kw
+
+
+def test_beam_kernel_refuses_cpu_tensors(state):
+    """The kernel's wrapper raises on what it does not take: it never falls
+    back to the plain version."""
+    q = t(state["codes"][:8])
+    with pytest.raises(ValueError):
+        build_ops.beam_construct_kernel(
+            q, t(state["codes"]), t(state["norms"]), t(state["links"]), t(state["rank"]),
+            torch.zeros(8, dtype=torch.int32), 1.0, True, 48, 10, 8)
+
+
+@pytest.mark.parametrize("name", ["f32_codes", "query_type", "query_width", "int64_links",
+                                  "no_ef", "no_expand"])
+def test_beam_kernel_refuses_what_it_does_not_take(name):
+    """The kernel's wrapper raises on inputs it cannot run, whatever their
+    device: codes other than bf16 or int8, queries of another type or width,
+    links not int32, no beam, no picks."""
+    args, kw = _refuse(name)
+    with pytest.raises((ValueError, TypeError)):
+        build_ops.beam_construct_kernel(*args, **kw)
+
+
+def test_cpu_rounds_take_the_plain_beam(state):
+    """On the CPU every insert round's beam is the plain version: the rounds
+    count, the kernel's rounds do not, and the round's beam is
+    `_beam_construct_plain`'s."""
+    from qdrant_tpu_torch.utils import tracing
+
+    before = tracing.counters()
+    batch = np.arange(N // 2, N // 2 + 64, dtype=np.int32)
+    _, (_, _, pbeam) = _round(state, "int8", False, batch)
+    after = tracing.counters()
+    assert after["build.insert_rounds"] == before.get("build.insert_rounds", 0) + 1
+    assert after.get("build.beam_kernel", 0) == before.get("build.beam_kernel", 0)
+    codes = t(state["codes"])
+    entries = torch.full((64,), int(state["jidx"].entry), dtype=torch.int32)
+    scale_sq = float(np.float32(2.0 * state["scale"] * state["scale"]))
+    _, ids = build_ops._beam_construct_plain(
+        codes[t(batch).long()], codes, t(state["norms"]), t(state["links"]), t(state["rank"]),
+        entries, scale_sq, True, 48, 10, 8)
+    np.testing.assert_array_equal(pbeam, ids.numpy())
